@@ -1,0 +1,382 @@
+// K1: fused matching cost + guided-filter aggregation + streaming WTA,
+// one view, on Hopper (sm_90a).
+//
+// Replaces: stereo_matching_cuda_tpu/ops/pallas_guided.py::_make_stream_kernel
+//   (launched by _stream_tiles), the TPU kernel of the default frame.
+// Checked against: stereo_matching_cuda_tpu_torch/ops/fused_guided.py::
+//   guided_wta_fused_reference (cost_volume followed by guided_filter_wta),
+//   at the fused fast-path bound (near-tie label flips only).
+//
+// What it computes, per output pixel (y, x) and slice s (d = dmin + s):
+//   cost  = (1-a)*min(|I1 - I2(x+d)|, th_color) + a*min(|dI1 - dI2(x+d)|, th_grad),
+//           2.5-class constant where x+d leaves [0, W), zero outside the image
+//   mean_I, c = 1/(var + eps) (double), mean_p, mean_Ip over the clamped
+//   (2R+1)^2 window; a, b zeroed outside the image; q = mean_a*I + mean_b;
+//   if (best >= q) {best = q; dmap = d}   (ascending d: largest d wins ties)
+//
+// Design.  The TPU kernel walks each column strip top to bottom, carrying
+// 2R rows of window sums between sequential grid steps.  CUDA blocks run
+// unordered on 132 SMs, so nothing is carried: one CTA owns a 32 x TH
+// output tile and recomputes its 2R halo.  The CTA loads both uint8 input
+// windows into shared memory once (the match window widened by the D-1
+// slice reach), computes the guide statistics over tile+R, then loops over
+// the slices in ascending order.  Each slice builds the cost over tile+2R
+// in shared memory and reduces it with separable box sums (horizontal,
+// then vertical).  Every window is a sum of its own 2R+1 values, never a
+// running add/subtract (the cost is not integer-valued and would drift)
+// nor an integral image (float32 cancellation at 6 MP).  A thread sums
+// kRB adjacent windows at once: they share 2R+2-kRB middle values, loaded
+// and added once.  Each thread keeps (best, dmap) of its TH/8 pixels in
+// registers across slices.
+//
+// What bounds it on the H100.  Per output pixel and slice it issues 4 box
+// passes (x and y, for two planes each) of about (2R+kRB)/kRB shared-
+// memory loads and (2R+3kRB)/kRB adds, scaled by the tile's halo ratio
+// ((32+4R)(TH+4R)/(32*TH) for the cost), plus the cost itself, against 2
+// bytes of input per pixel: it is bound by shared-memory traffic and
+// issue, not by device memory.  The tile keeps every intermediate in
+// shared memory (row pitches odd, so a warp walking rows hits 32 banks);
+// a taller tile lowers the halo ratio.  Streaming rows through a CTA (no
+// y halo) is later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTileW = 32;       // output tile width: one warp
+constexpr int kBlockY = 8;       // the block is kTileW x kBlockY threads
+constexpr int kThreads = kTileW * kBlockY;
+constexpr int kRB = 4;           // adjacent windows one thread sums at once
+
+struct Params {
+  int H, W, dmin, D, R;
+  float one_m_alpha, alpha, th_color, th_grad, oob;
+  double eps;
+};
+
+// Geometry of one CTA's shared-memory windows.  Pitches are odd.
+struct Geom {
+  int P;        // 2R
+  int ER, EC;   // cost region: tile + 2R on each side
+  int MR, MC;   // a/b region: tile + R on each side
+  int PE;       // pitch of the cost planes (>= EC)
+  int PM;       // pitch of the x-sum planes and of a, b (>= MC)
+  int I1C;      // guide window width: EC plus one column on each side
+  int I2C;      // match window width: EC + D + 1
+};
+
+__host__ __device__ inline Geom geometry(int R, int TH, int D) {
+  Geom g;
+  g.P = 2 * R;
+  g.ER = TH + 2 * g.P;
+  g.EC = kTileW + 2 * g.P;
+  g.MR = TH + g.P;
+  g.MC = kTileW + g.P;
+  g.PE = g.EC | 1;
+  g.PM = g.MC | 1;
+  g.I1C = g.EC + 2;
+  g.I2C = g.EC + D + 1;
+  return g;
+}
+
+__host__ inline size_t smem_bytes(int R, int TH, int D) {
+  const Geom g = geometry(R, TH, D);
+  const size_t floats = 2 * (size_t)g.ER * g.PE    // cost, I*cost; then a, b
+                      + 2 * (size_t)g.ER * g.PM    // their x-sums; then a's, b's
+                      + 2 * (size_t)g.MR * g.MC;   // mean_I, c
+  const size_t bytes = (size_t)g.ER * g.I1C + (size_t)g.ER * g.I2C;
+  return floats * sizeof(float) + bytes;
+}
+
+// out[i] = src[i*stride] + ... + src[(i+k-1)*stride] for i < nv <= RB.
+// The RB windows share values RB-1 .. k-1, summed once as `mid`; then
+// out[i] = (v_i + ... + v_{RB-2}) + mid + (v_k + ... + v_{k+i-1}).
+// Needs k >= RB - 1.  Reads nothing past window nv-1.
+template <int RB, typename Acc>
+__device__ inline void window_sums(const float* __restrict__ src, int stride,
+                                   int k, int nv, Acc (&out)[RB]) {
+  Acc mid = 0;
+  for (int j = RB - 1; j < k; ++j) mid += src[j * stride];
+  Acc head[RB];
+  head[RB - 1] = 0;
+#pragma unroll
+  for (int i = RB - 2; i >= 0; --i) head[i] = head[i + 1] + src[i * stride];
+  Acc tail = 0;
+#pragma unroll
+  for (int i = 0; i < RB; ++i) {
+    out[i] = head[i] + mid + tail;
+    if (i + 1 < nv) tail += src[(k + i) * stride];
+  }
+}
+
+// x-window sums of two planes: dst[r][c] = sum_j src[r][c + j] for
+// r < rows, c < cols.  Lanes walk rows (odd pitches: no bank conflicts).
+template <typename Acc>
+__device__ inline void x_sums(const float* a, const float* b, int src_pitch,
+                              float* da, float* db, int dst_pitch,
+                              int rows, int cols, int k, int tid) {
+  const int nblk = (cols + kRB - 1) / kRB;
+  for (int t = tid; t < rows * nblk; t += kThreads) {
+    const int r = t % rows, c0 = (t / rows) * kRB;
+    const int nv = min(kRB, cols - c0);
+    Acc s1[kRB], s2[kRB];
+    window_sums<kRB>(a + r * src_pitch + c0, 1, k, nv, s1);
+    window_sums<kRB>(b + r * src_pitch + c0, 1, k, nv, s2);
+#pragma unroll
+    for (int i = 0; i < kRB; ++i)
+      if (i < nv) {
+        da[r * dst_pitch + c0 + i] = (float)s1[i];
+        db[r * dst_pitch + c0 + i] = (float)s2[i];
+      }
+  }
+}
+
+// Clamped window area (guidedFilter.cu:314-317) at global (gy, gx).
+__device__ inline float window_area(int gy, int gx, int H, int W, int R) {
+  const int ay = min(H - 1, gy + R) - max(-1, gy - R - 1);
+  const int ax = min(W - 1, gx + R) - max(-1, gx - R - 1);
+  return (float)(ay * ax);
+}
+
+// Negated central difference at a window position whose global column
+// is gx; one-sided at the image's own edges (costVolume.cu:362-378).
+__device__ inline float x_derivative(const uint8_t* p, int gx, int W) {
+  const int mid = p[0];
+  const int right = gx < W - 1 ? p[1] : mid;
+  const int left = gx > 0 ? p[-1] : mid;
+  return (float)(left - right) * 0.5f;
+}
+
+template <int TH>
+__global__ void __launch_bounds__(kThreads)
+guided_wta_kernel(const uint8_t* __restrict__ gray1,
+                  const uint8_t* __restrict__ gray2,
+                  float* __restrict__ best_out,
+                  float* __restrict__ dmap_out, Params p) {
+  constexpr int kRows = TH / kBlockY;   // output rows per thread
+  extern __shared__ float smem[];
+  const Geom g = geometry(p.R, TH, p.D);
+  const int P = g.P, R = p.R, H = p.H, W = p.W;
+  const int k = 2 * R + 1;
+  float* buf1a = smem;                       // cost      -> a
+  float* buf1b = buf1a + g.ER * g.PE;        // I*cost    -> b
+  float* buf2a = buf1b + g.ER * g.PE;        // xsum(cost)   -> xsum(a)
+  float* buf2b = buf2a + g.ER * g.PM;        // xsum(I*cost) -> xsum(b)
+  float* mean_i = buf2b + g.ER * g.PM;
+  float* c_i = mean_i + g.MR * g.MC;
+  uint8_t* i1s = reinterpret_cast<uint8_t*>(c_i + g.MR * g.MC);
+  uint8_t* i2s = i1s + g.ER * g.I1C;
+
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * kTileW + tx;
+  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * TH;
+  const int ye = y0 - P, xe = x0 - P;        // global origin of the E region
+  const int ym = y0 - R, xm = x0 - R;        // global origin of the M region
+
+  // Input windows, zero outside the image.  i1s column c holds global
+  // column xe - 1 + c; i2s column c holds xe + dmin - 1 + c.
+  for (int r = ty; r < g.ER; r += kBlockY) {
+    const int gy = ye + r;
+    const bool row_in = gy >= 0 && gy < H;
+    for (int c = tx; c < g.I1C; c += kTileW) {
+      const int gx = xe - 1 + c;
+      i1s[r * g.I1C + c] = (row_in && gx >= 0 && gx < W) ? gray1[(size_t)gy * W + gx] : 0;
+    }
+    for (int c = tx; c < g.I2C; c += kTileW) {
+      const int gx = xe + p.dmin - 1 + c;
+      i2s[r * g.I2C + c] = (row_in && gx >= 0 && gx < W) ? gray2[(size_t)gy * W + gx] : 0;
+    }
+  }
+  __syncthreads();
+
+  // Guide statistics over M: mean_I, var, c = fl32(1 / (f64 var + f64 eps)).
+  // I and I^2 are integers: their x-sums (< 2^24 for any radius whose
+  // tile fits shared memory) are exact in float and the y-sums exact in
+  // double, in any order, so each window sum is rounded once, as the plain
+  // version's float64 box sums are, and the statistics match it bit for bit.
+  for (int r = ty; r < g.ER; r += kBlockY)
+    for (int c = tx; c < g.EC; c += kTileW) {
+      const float v = (float)i1s[r * g.I1C + c + 1];
+      buf1a[r * g.PE + c] = v;
+      buf1b[r * g.PE + c] = v * v;
+    }
+  __syncthreads();
+  x_sums<float>(buf1a, buf1b, g.PE, buf2a, buf2b, g.PM, g.ER, g.MC, k, tid);
+  __syncthreads();
+  {
+    const int nblk = (g.MR + kRB - 1) / kRB;
+    for (int t = tid; t < g.MC * nblk; t += kThreads) {
+      const int c = t % g.MC, r0 = (t / g.MC) * kRB;
+      const int nv = min(kRB, g.MR - r0);
+      double s1[kRB], s2[kRB];
+      window_sums<kRB>(buf2a + r0 * g.PM + c, g.PM, k, nv, s1);
+      window_sums<kRB>(buf2b + r0 * g.PM + c, g.PM, k, nv, s2);
+#pragma unroll
+      for (int i = 0; i < kRB; ++i) {
+        if (i >= nv) break;
+        const int gy = ym + r0 + i, gx = xm + c;
+        float m = 0.f, cc = 0.f;
+        if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+          const float area = window_area(gy, gx, H, W, R);
+          m = __fdiv_rn((float)s1[i], area);
+          const float var = __fsub_rn(__fdiv_rn((float)s2[i], area), __fmul_rn(m, m));
+          cc = (float)(1.0 / ((double)var + p.eps));
+        }
+        mean_i[(r0 + i) * g.MC + c] = m;
+        c_i[(r0 + i) * g.MC + c] = cc;
+      }
+    }
+  }
+  __syncthreads();
+
+  float best[kRows], dmap[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    best[i] = __int_as_float(0x7F7F7F7F);   // main.cu:112-115
+    dmap[i] = 0.f;
+  }
+  const int yq = ty * kRows;                 // this thread's first output row
+
+  for (int s = 0; s < p.D; ++s) {
+    const int d = p.dmin + s;
+
+    // 1. cost and I*cost over E (zero outside the image).
+    for (int r = ty; r < g.ER; r += kBlockY) {
+      const int gy = ye + r;
+      for (int c = tx; c < g.EC; c += kTileW) {
+        const int gx = xe + c;
+        float cost = 0.f, iv = 0.f;
+        if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+          const uint8_t* q1 = i1s + r * g.I1C + c + 1;   // q1[0] at gx
+          iv = (float)q1[0];
+          const int gx2 = gx + d;
+          if (gx2 < 0 || gx2 >= W) {
+            cost = p.oob;
+          } else {
+            const uint8_t* q2 = i2s + r * g.I2C + c + s + 1;   // q2[0] at gx2
+            const float diff = (float)abs((int)q1[0] - (int)q2[0]);
+            const float grad = fabsf(x_derivative(q1, gx, W) - x_derivative(q2, gx2, W));
+            cost = __fadd_rn(__fmul_rn(p.one_m_alpha, fminf(diff, p.th_color)),
+                             __fmul_rn(p.alpha, fminf(grad, p.th_grad)));
+          }
+        }
+        buf1a[r * g.PE + c] = cost;
+        buf1b[r * g.PE + c] = iv * cost;
+      }
+    }
+    __syncthreads();
+
+    // 2. x-window sums over (E rows) x (M columns).
+    x_sums<float>(buf1a, buf1b, g.PE, buf2a, buf2b, g.PM, g.ER, g.MC, k, tid);
+    __syncthreads();
+
+    // 3. y-window sums -> mean_p, mean_Ip -> a, b over M (into buf1).
+    {
+      const int nblk = (g.MR + kRB - 1) / kRB;
+      for (int t = tid; t < g.MC * nblk; t += kThreads) {
+        const int c = t % g.MC, r0 = (t / g.MC) * kRB;
+        const int nv = min(kRB, g.MR - r0);
+        float s1[kRB], s2[kRB];
+        window_sums<kRB>(buf2a + r0 * g.PM + c, g.PM, k, nv, s1);
+        window_sums<kRB>(buf2b + r0 * g.PM + c, g.PM, k, nv, s2);
+#pragma unroll
+        for (int i = 0; i < kRB; ++i) {
+          if (i >= nv) break;
+          const int r = r0 + i, gy = ym + r, gx = xm + c;
+          float a = 0.f, b = 0.f;
+          if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+            const float area = window_area(gy, gx, H, W, R);
+            const float mp = s1[i] / area, mip = s2[i] / area;
+            const float mi = mean_i[r * g.MC + c];
+            a = (mip - mi * mp) * c_i[r * g.MC + c];
+            b = mp - mi * a;
+          }
+          buf1a[r * g.PM + c] = a;
+          buf1b[r * g.PM + c] = b;
+        }
+      }
+    }
+    __syncthreads();
+
+    // 4. x-window sums of a, b over (M rows) x (tile columns) (into buf2).
+    x_sums<float>(buf1a, buf1b, g.PM, buf2a, buf2b, kTileW + 1, g.MR, kTileW, k, tid);
+    __syncthreads();
+
+    // 5. y-window sums -> q -> streaming WTA in registers, rows yq ..
+    // yq + kRows - 1 of column tx.  The next slice's step 1 writes buf1
+    // only, so no barrier is needed here; its step 2 writes buf2 after
+    // the barrier that ends step 1.
+    {
+      float sa[kRows], sb[kRows];
+      window_sums<kRows>(buf2a + yq * (kTileW + 1) + tx, kTileW + 1, k, kRows, sa);
+      window_sums<kRows>(buf2b + yq * (kTileW + 1) + tx, kTileW + 1, k, kRows, sb);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int gy = y0 + yq + i, gx = x0 + tx;
+        if (gy < H && gx < W) {
+          const float area = window_area(gy, gx, H, W, R);
+          const float iv = (float)i1s[(yq + i + P) * g.I1C + tx + P + 1];
+          const float q = (sa[i] / area) * iv + sb[i] / area;
+          if (best[i] >= q) {
+            best[i] = q;
+            dmap[i] = (float)d;
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int gy = y0 + yq + i, gx = x0 + tx;
+    if (gy < H && gx < W) {
+      best_out[(size_t)gy * W + gx] = best[i];
+      dmap_out[(size_t)gy * W + gx] = dmap[i];
+    }
+  }
+}
+
+template <int TH>
+cudaError_t launch(const uint8_t* gray1, const uint8_t* gray2, float* best,
+                   float* dmap, const Params& p, cudaStream_t stream) {
+  const size_t smem = smem_bytes(p.R, TH, p.D);
+  cudaError_t err = cudaFuncSetAttribute(
+      guided_wta_kernel<TH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.W + kTileW - 1) / kTileW, (p.H + TH - 1) / TH);
+  guided_wta_kernel<TH><<<grid, dim3(kTileW, kBlockY), smem, stream>>>(
+      gray1, gray2, best, dmap, p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Dynamic shared memory the kernel needs for a given radius, tile height
+// and slice count (bytes).  The wrapper picks the tile height with it.
+extern "C" long long guided_wta_smem_bytes(int R, int TH, int D) {
+  return (long long)smem_bytes(R, TH, D);
+}
+
+// Launches K1 on `stream`.  gray1/gray2: uint8 (H, W) contiguous;
+// best/dmap: float32 (H, W).  TH must be 8, 16 or 32.  Returns the CUDA
+// error of the launch (0 on success).
+extern "C" int guided_wta_launch(const void* gray1, const void* gray2,
+                                 void* best, void* dmap, int H, int W,
+                                 int dmin, int D, int R, int TH,
+                                 float one_m_alpha, float alpha,
+                                 float th_color, float th_grad, float oob,
+                                 double eps, void* stream) {
+  const Params p{H, W, dmin, D, R, one_m_alpha, alpha, th_color, th_grad, oob, eps};
+  const auto* g1 = static_cast<const uint8_t*>(gray1);
+  const auto* g2 = static_cast<const uint8_t*>(gray2);
+  auto* b = static_cast<float*>(best);
+  auto* m = static_cast<float*>(dmap);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (TH) {
+    case 32: return (int)launch<32>(g1, g2, b, m, p, st);
+    case 16: return (int)launch<16>(g1, g2, b, m, p, st);
+    case 8: return (int)launch<8>(g1, g2, b, m, p, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,80 @@
+"""Kernels K1 and K2 on a CUDA GPU against their plain versions on the
+same card.  Skipped without a GPU; on a machine with one (and no JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from stereo_matching_cuda_tpu_torch import DEFAULT_CONFIG, StereoConfig, compute_disparity
+from stereo_matching_cuda_tpu_torch.ops.fused_guided import (
+    guided_wta_fused, guided_wta_fused_reference)
+from stereo_matching_cuda_tpu_torch.ops.fused_post import lr_fill_fused, lr_fill_reference
+from stereo_matching_cuda_tpu_torch.utils.synth import make_scene
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return "cuda"
+
+
+def _pair(h, w, seed, dev):
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, size=(h, w + 32)).astype(np.float32)
+    base = ((base + np.roll(base, 1, 1) + np.roll(base, -1, 1)
+             + np.roll(base, 1, 0)) / 4).astype(np.uint8)
+    return (torch.from_numpy(np.ascontiguousarray(base[:, 16:16 + w])).to(dev),
+            torch.from_numpy(np.ascontiguousarray(base[:, 10:10 + w])).to(dev))
+
+
+@pytest.mark.parametrize("h,w,d_min,d_max,dmin", [
+    (64, 96, -15, 0, -15), (64, 96, -15, 0, 0), (33, 130, -15, 0, -15),
+    (8, 40, -15, 0, -15), (48, 160, -63, 0, -63), (40, 70, -8, 8, -8)])
+def test_k1_matches_plain(dev, h, w, d_min, d_max, dmin):
+    """The fused fast-path bound (tests/test_pallas_fused.py:55-57)."""
+    cfg = StereoConfig(d_min=d_min, d_max=d_max)
+    g1, g2 = _pair(h, w, h + w, dev)
+    best, dmap = guided_wta_fused(g1, g2, dmin, cfg)
+    best_p, dmap_p = guided_wta_fused_reference(g1, g2, dmin, cfg)
+    mism = int((dmap != dmap_p).sum())
+    assert mism <= max(4, 2e-3 * h * w), mism
+    torch.testing.assert_close(best, best_p, atol=2e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("radius", [1, 4, 14, 20, 23])
+def test_k1_other_radii(dev, radius):
+    """Radii 20 and 23 take the 16- and 8-row tiles (shared memory)."""
+    cfg = dataclasses.replace(DEFAULT_CONFIG, radius=radius)
+    g1, g2 = _pair(70, 100, radius, dev)
+    best, dmap = guided_wta_fused(g1, g2, cfg.d_min, cfg)
+    best_p, dmap_p = guided_wta_fused_reference(g1, g2, cfg.d_min, cfg)
+    assert int((dmap != dmap_p).sum()) <= max(4, 2e-3 * dmap.numel())
+    torch.testing.assert_close(best, best_p, atol=2e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("d_min,h,w", [(-15, 288, 384), (-127, 40, 300), (-15, 7, 1000)])
+def test_k2_bit_identical(dev, d_min, h, w):
+    cfg = StereoConfig(d_min=d_min, d_max=0)
+    rng = np.random.default_rng(h)
+    dl = torch.from_numpy(rng.integers(cfg.d_min, 1, (h, w)).astype(np.float32)).to(dev)
+    dr = torch.from_numpy(rng.integers(0, -cfg.d_min + 1, (h, w)).astype(np.float32)).to(dev)
+    dr[1:3] = 500.0
+    occ, filled = lr_fill_fused(dl, dr, cfg)
+    occ_p, filled_p = lr_fill_reference(dl, dr, cfg)
+    assert torch.equal(occ, occ_p) and torch.equal(filled, filled_p)
+
+
+def test_main_path_launches_each_kernel(dev):
+    guided_wta_fused.launches = lr_fill_fused.launches = 0
+    sc = make_scene(96, 160, ndisp=16)
+    out = compute_disparity(sc["left"], sc["right"], DEFAULT_CONFIG, dev)
+    assert (guided_wta_fused.launches, lr_fill_fused.launches) == (2, 1)
+    assert np.isfinite(out["occlusion_filled"]).all()
