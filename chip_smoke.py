@@ -4,14 +4,17 @@
 
 Run from the repository root on a machine with a CUDA GPU, ``nvcc`` and
 ``nvidia-smi``.  It builds the hand-written kernels from ``csrc/``,
-checks each against its plain PyTorch version on the card, drives the
-main path (``compute_disparity``) on a 288x384 scene and a 1992x3008
-(6 MP) scene, checks the launch counts and the results, times kernel and
-plain paths with CUDA events, splits the kernel path's device time by
-layer and reads the device's idle share with torch.profiler, and prints
-two JSON lines last: the
-per-kernel record, then ``{"ok": true, "device": ...}``.  Any failure
-raises and exits non-zero; with no CUDA device it exits non-zero at once.
+checks each (K1, K2, K4, K5) against its plain PyTorch version on the
+card, drives the kernel paths of ``compute_disparity`` on a 288x384
+scene and a 1992x3008 (6 MP) scene: the default single-view path (K1 +
+K2), the dual-view path forced with ``dual_view=True`` and the one the
+automatic rule takes at 8 disparities (K4 at 288x384, K5 at 6 MP, + K2),
+checks the launch counts and the results, times kernel and plain paths
+with CUDA events, splits each path's device time by kernel and reads
+the device's idle share with torch.profiler, and prints two JSON lines
+last: the per-kernel record, then ``{"ok": true, "device": ...}``.  Any
+failure raises and exits non-zero; with no CUDA device it exits
+non-zero at once.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from stereo_matching_cuda_tpu_torch import DEFAULT_CONFIG, StereoConfig, compute
 from stereo_matching_cuda_tpu_torch.metrics import bad_pixel_rate
 from stereo_matching_cuda_tpu_torch.ops import _kernels, rgb_to_grayscale
 from stereo_matching_cuda_tpu_torch.ops.fused_guided import (
-    guided_wta_fused, guided_wta_fused_reference)
+    guided_wta_fused, guided_wta_fused_dual, guided_wta_fused_dual_reference,
+    guided_wta_fused_reference)
 from stereo_matching_cuda_tpu_torch.ops.fused_post import lr_fill_fused, lr_fill_reference
 from stereo_matching_cuda_tpu_torch.pipeline import stereo_pipeline
 from stereo_matching_cuda_tpu_torch.utils.synth import make_scene
@@ -36,6 +40,12 @@ from stereo_matching_cuda_tpu_torch.utils.synth import make_scene
 DEV = "cuda"
 PLAIN = dataclasses.replace(DEFAULT_CONFIG, fused=False, post_fused=False)
 CFG64 = StereoConfig(d_min=-63, d_max=0)
+CFG8 = StereoConfig(d_min=-7, d_max=0)           # 8 disparities: the auto dual route
+DUAL16 = dataclasses.replace(DEFAULT_CONFIG, dual_view=True)
+# Kernel function names, as the profiler reports them, by layer.
+KERNEL_NAMES = {"guided_wta_kernel": "K1", "lr_fill_kernel": "K2",
+                "guided_wta_dual_kernel": "K4",
+                "guided_wta_dual_stream_kernel": "K5"}
 # K1's bound: the fused fast-path class of the JAX kernels
 # (tests/test_pallas_fused.py:55-57) — near-tie label flips only.
 K1_ATOL, K1_RTOL = 2e-3, 1e-4
@@ -100,18 +110,18 @@ def label_maps(cfg, h, w, seed):
     return torch.from_numpy(dl).to(DEV), torch.from_numpy(dr).to(DEV)
 
 
-def check_k2(k1_maps):
+def check_k2(kernel_maps):
     """K2 against lr_fill_reference on the card: bit-identical on random
-    label maps and on each main-path frame's K1 maps (``k1_maps``: name
-    -> (left, right)); returns the largest |difference| seen (0.0 when
-    it holds)."""
+    label maps and on the label maps K1, K4 and K5 gave each main-path
+    frame (``kernel_maps``: list of (cfg, left, right)); returns the
+    largest |difference| seen (0.0 when it holds)."""
     cfg128 = StereoConfig(d_min=-127, d_max=0)
     cases = [(DEFAULT_CONFIG, *label_maps(DEFAULT_CONFIG, 288, 384, 0)),
              (cfg128, *label_maps(cfg128, 40, 300, 1))]
     dl, dr = label_maps(DEFAULT_CONFIG, 24, 256, 2)
     dr[3:6] = -DEFAULT_CONFIG.d_min + 50      # rows with no LR-consistent pixel
     cases.append((DEFAULT_CONFIG, dl, dr))
-    cases += [(DEFAULT_CONFIG, dl, dr) for dl, dr in k1_maps.values()]
+    cases += kernel_maps
     worst = 0.0
     for cfg, dl, dr in cases:
         occ, filled = lr_fill_fused(dl, dr, cfg)
@@ -127,33 +137,102 @@ def check_k2(k1_maps):
     return worst
 
 
+def check_dual(kernel, grays):
+    """K4 (``kernel`` "K4", stream=False) or K5 ("K5", stream=True)
+    against guided_wta_fused_dual_reference on the card, per view at K1's
+    bound: textured pairs at 16 and 8 disparities, a range straddling
+    zero, 64 disparities (K5 only where it fits one block; otherwise a
+    forced launch must raise), a B=3 batch against per-frame launches
+    (bit for bit), and both views of each main-path frame (``grays``:
+    name -> (cfg, gray pair)).  Returns max |Δbest| and the frames'
+    (cfg, dmap_l, dmap_r) for K2."""
+    stream = kernel == "K5"
+    straddle = StereoConfig(d_min=-8, d_max=8)
+    cases = [("textured", (288, 384), DEFAULT_CONFIG), ("textured", (288, 384), CFG8),
+             ("textured", (33, 130), DEFAULT_CONFIG), ("textured", (64, 160), straddle)]
+    if stream and not _kernels.dual_stream_fits(
+            CFG64.radius, _kernels.dual_reach(CFG64.d_min, CFG64.size_d)):
+        g1, g2 = textured_pair(200, 400, seed=600)
+        try:
+            guided_wta_fused_dual(g1, g2, dataclasses.replace(CFG64, stream=True))
+        except ValueError as e:
+            print(f"K5 200x400 D=64: does not fit one block, forced launch raised ({e})")
+        else:
+            raise AssertionError("K5 at D=64 does not fit yet launched")
+    else:
+        cases.append(("textured", (200, 400), CFG64))
+    cases += [(name, None, cfg) for name, (cfg, _) in grays.items()]
+    worst, maps = 0.0, []
+    for name, shape, cfg in cases:
+        cfg = dataclasses.replace(cfg, stream=stream)
+        g1, g2 = grays[name][1] if shape is None else textured_pair(*shape, seed=sum(shape))
+        h, w = g1.shape
+        outs = guided_wta_fused_dual(g1, g2, cfg)
+        ref = guided_wta_fused_dual_reference(g1, g2, cfg)
+        torch.cuda.synchronize()
+        for view, v in (("left", 0), ("right", 2)):
+            mism = int((outs[v + 1] != ref[v + 1]).sum())
+            err = float((outs[v] - ref[v]).abs().max())
+            print(f"{kernel} {name} {h}x{w} d=[{cfg.d_min},{cfg.d_max}] {view}: {mism} "
+                  f"label mismatches (bound {k1_max_mismatch(h * w)}), "
+                  f"max |best-plain| {err:.3g}")
+            assert mism <= k1_max_mismatch(h * w), f"{kernel} disagrees with its plain version"
+            torch.testing.assert_close(outs[v], ref[v], atol=K1_ATOL, rtol=K1_RTOL)
+            worst = max(worst, err)
+        if shape is None:
+            maps.append((cfg, outs[1], outs[3]))
+    cfg = dataclasses.replace(DEFAULT_CONFIG, stream=stream)
+    pairs = [textured_pair(96, 200, seed=s) for s in (1, 2, 3)]
+    batch = guided_wta_fused_dual(torch.stack([p[0] for p in pairs]),
+                                  torch.stack([p[1] for p in pairs]), cfg)
+    for i, (g1, g2) in enumerate(pairs):
+        for j, t in enumerate(guided_wta_fused_dual(g1, g2, cfg)):
+            assert torch.equal(batch[j][i], t), f"{kernel} batch frame {i} output {j}"
+    print(f"{kernel} B=3 batch of 96x200: equal to per-frame launches, bit for bit")
+    return worst, maps
+
+
+COUNT_NAMES = ("K1", "K2", "K4", "K5")
+
+
 def reset_counts():
     guided_wta_fused.launches = 0
     lr_fill_fused.launches = 0
+    guided_wta_fused_dual.k4_launches = 0
+    guided_wta_fused_dual.k5_launches = 0
 
 
 def counts():
-    return guided_wta_fused.launches, lr_fill_fused.launches
+    return (guided_wta_fused.launches, lr_fill_fused.launches,
+            guided_wta_fused_dual.k4_launches, guided_wta_fused_dual.k5_launches)
 
 
-def drive_main_path(scenes):
-    """compute_disparity on each scene with the default config; each frame
-    must launch K1 twice and K2 once.  Returns outputs and total counts."""
+def drive_path(path, runs):
+    """compute_disparity on each (name, scene, cfg, expected launches per
+    kernel) of one kernel path, with every count set to 0 just before and
+    read just after.  Returns the outputs and the path's counts."""
     reset_counts()
     outs = []
-    for name, sc in scenes:
+    for name, sc, cfg, expect in runs:
         before = counts()
-        outs.append(compute_disparity(sc["left"], sc["right"], DEFAULT_CONFIG, DEV))
-        after = counts()
-        delta = (after[0] - before[0], after[1] - before[1])
-        print(f"main path {name}: K1 launches {delta[0]}, K2 launches {delta[1]}")
-        assert delta == (2, 1), f"{name}: expected 2 K1 and 1 K2 launches, got {delta}"
-    return outs, counts()
+        outs.append(compute_disparity(sc["left"], sc["right"], cfg, DEV))
+        delta = dict(zip(COUNT_NAMES, (a - b for a, b in zip(counts(), before))))
+        print(f"{path} {name}: launches " + ", ".join(f"{k} {v}" for k, v in delta.items()))
+        assert delta == expect, f"{path} {name}: expected launches {expect}, got {delta}"
+    total = dict(zip(COUNT_NAMES, counts()))
+    print(f"{path}: launches in this path's run {total}")
+    return outs, total
 
 
-def check_outputs(name, sc, out):
+def launches(k1=0, k2=0, k4=0, k5=0):
+    return {"K1": k1, "K2": k2, "K4": k4, "K5": k5}
+
+
+def check_outputs(name, sc, out, cfg=DEFAULT_CONFIG):
     """Shapes, finiteness and agreement with the plain path on the card."""
-    plain = compute_disparity(sc["left"], sc["right"], PLAIN, DEV)
+    plain = compute_disparity(
+        sc["left"], sc["right"],
+        dataclasses.replace(cfg, fused=False, post_fused=False), DEV)
     h, w = sc["gt"].shape
     n = h * w
     for key, v in out.items():
@@ -187,23 +266,32 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def time_scene(name, sc, iters):
-    """ms per frame (kernel and plain paths) and per kernel for one scene."""
+def time_scene(name, sc, sc8, iters):
+    """ms per frame (default, dual D=16 and auto D=8 kernel paths, the
+    plain path) and per kernel launch (K4 and K5 forced at D=16, each
+    against two K1 launches) for one frame size."""
     left = torch.from_numpy(sc["left"]).to(DEV)
     right = torch.from_numpy(sc["right"]).to(DEV)
+    left8 = torch.from_numpy(sc8["left"]).to(DEV)
+    right8 = torch.from_numpy(sc8["right"]).to(DEV)
     cfg = DEFAULT_CONFIG
     gl = rgb_to_grayscale(left, cfg)
     gr = rgb_to_grayscale(right, cfg)
     dl = guided_wta_fused(gl, gr, cfg.d_min, cfg)[1]
     dr = guided_wta_fused(gr, gl, cfg.d_min_right, cfg)[1]
+    k4, k5 = (dataclasses.replace(cfg, stream=s) for s in (False, True))
+    few = max(2, iters // 4)
     t = {
         "frame_ms": cuda_ms(lambda: stereo_pipeline(left, right, cfg), iters),
-        "frame_plain_ms": cuda_ms(lambda: stereo_pipeline(left, right, PLAIN),
-                                  max(2, iters // 4)),
+        "dual_frame_ms": cuda_ms(lambda: stereo_pipeline(left, right, DUAL16), iters),
+        "d8_frame_ms": cuda_ms(lambda: stereo_pipeline(left8, right8, CFG8), iters),
+        "frame_plain_ms": cuda_ms(lambda: stereo_pipeline(left, right, PLAIN), few),
         "k1_ms": cuda_ms(lambda: guided_wta_fused(gl, gr, cfg.d_min, cfg), iters),
         "k1_plain_ms": cuda_ms(
-            lambda: guided_wta_fused_reference(gl, gr, cfg.d_min, cfg),
-            max(2, iters // 4)),
+            lambda: guided_wta_fused_reference(gl, gr, cfg.d_min, cfg), few),
+        "k4_ms": cuda_ms(lambda: guided_wta_fused_dual(gl, gr, k4), iters),
+        "k5_ms": cuda_ms(lambda: guided_wta_fused_dual(gl, gr, k5), iters),
+        "dual_plain_ms": cuda_ms(lambda: guided_wta_fused_dual_reference(gl, gr, cfg), few),
         "k2_ms": cuda_ms(lambda: lr_fill_fused(dl, dr, cfg), iters),
         "k2_plain_ms": cuda_ms(lambda: lr_fill_reference(dl, dr, cfg), iters),
     }
@@ -211,32 +299,39 @@ def time_scene(name, sc, iters):
     return t
 
 
-def profile_scene(name, sc, frames, warmup=5):
-    """Device time per frame by layer (K1, K2, the rest) and the device's
-    idle share over ``frames`` frames of the kernel path, from
-    torch.profiler: idle share = 1 - (union of device-activity intervals)
-    / (first start to last end)."""
+def kernel_layer(kname):
+    """The layer of a device activity: the kernel whose full function name
+    the profiler's name (demangled or not) contains, else "other".  No
+    kernel's name is a part of another's, so at most one matches."""
+    found = [layer for name, layer in KERNEL_NAMES.items() if name in kname]
+    assert len(found) <= 1, kname
+    return found[0] if found else "other"
+
+
+def profile_scene(name, sc, cfg, frames, warmup=5):
+    """Device time per frame by layer (K1, K2, K4, K5, the rest) and the
+    device's idle share over ``frames`` frames of the kernel path under
+    ``cfg``, from torch.profiler: idle share = 1 - (union of
+    device-activity intervals) / (first start to last end)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     left = torch.from_numpy(sc["left"]).to(DEV)
     right = torch.from_numpy(sc["right"]).to(DEV)
     for _ in range(warmup):
-        stereo_pipeline(left, right, DEFAULT_CONFIG)
+        stereo_pipeline(left, right, cfg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(frames):
-            stereo_pipeline(left, right, DEFAULT_CONFIG)
+            stereo_pipeline(left, right, cfg)
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     assert spans, f"{name}: the profiler saw no device activity"
-    layers = {"K1": 0.0, "K2": 0.0, "other": 0.0}
+    layers = {"K1": 0.0, "K2": 0.0, "K4": 0.0, "K5": 0.0, "other": 0.0}
     busy, cur_start, cur_end = 0.0, *spans[0][:2]
     for start, end, kname in spans:
-        layer = ("K1" if "guided_wta" in kname
-                 else "K2" if "lr_fill" in kname else "other")
-        layers[layer] += end - start
+        layers[kernel_layer(kname)] += end - start
         if start > cur_end:
             busy += cur_end - cur_start
             cur_start, cur_end = start, end
@@ -271,34 +366,66 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line:
             print(f"  ptxas: {line.strip()}")
 
-    scenes = [("288x384", make_scene(288, 384, ndisp=16)),
-              ("1992x3008", make_scene(1992, 3008, ndisp=16))]
-    grays = {name: tuple(rgb_to_grayscale(torch.from_numpy(sc[k]).to(DEV), DEFAULT_CONFIG)
-                         for k in ("left", "right"))
-             for name, sc in scenes}
-    k1_err, k1_maps = check_k1(grays)
-    k2_err = check_k2(k1_maps)
+    sizes = {"288x384": (288, 384), "1992x3008": (1992, 3008)}
+    scenes16 = {name: make_scene(*hw, ndisp=16) for name, hw in sizes.items()}
+    scenes8 = {name: make_scene(*hw, ndisp=8) for name, hw in sizes.items()}
 
-    outs, (k1_launches, k2_launches) = drive_main_path(scenes)
-    for (name, sc), out in zip(scenes, outs):
-        check_outputs(name, sc, out)
+    def grays(sc):
+        return tuple(rgb_to_grayscale(torch.from_numpy(sc[k]).to(DEV), DEFAULT_CONFIG)
+                     for k in ("left", "right"))
 
-    times = {name: time_scene(name, sc, iters)
-             for (name, sc), iters in zip(scenes, (50, 10))}
-    for (name, sc), frames in zip(scenes, (50, 10)):
-        profile_scene(name, sc, frames)
+    grays16 = {name: grays(sc) for name, sc in scenes16.items()}
+    k1_err, k1_maps = check_k1(grays16)
+    dual_grays = {}
+    for name in sizes:
+        dual_grays[f"{name} D=16"] = (DEFAULT_CONFIG, grays16[name])
+        dual_grays[f"{name} D=8"] = (CFG8, grays(scenes8[name]))
+    k4_err, k4_maps = check_dual("K4", dual_grays)
+    k5_err, k5_maps = check_dual("K5", dual_grays)
+    k2_err = check_k2([(DEFAULT_CONFIG, dl, dr) for dl, dr in k1_maps.values()]
+                      + k4_maps + k5_maps)
+
+    default_runs = [(name, scenes16[name], DEFAULT_CONFIG, launches(k1=2, k2=1))
+                    for name in sizes]
+    default_outs, default_counts = drive_path("default path", default_runs)
+    dual_runs = []
+    for name in sizes:
+        # K4 below 200,000 px, K5 from there on (pipeline.use_stream)
+        expect = launches(k2=1, k4=1) if name == "288x384" else launches(k2=1, k5=1)
+        dual_runs += [(f"{name} D=16 dual_view=True", scenes16[name], DUAL16, expect),
+                      (f"{name} D=8 auto", scenes8[name], CFG8, expect)]
+    dual_outs, dual_counts = drive_path("dual-view path", dual_runs)
+    for (name, sc, cfg, _), out in zip(default_runs + dual_runs, default_outs + dual_outs):
+        check_outputs(name, sc, out, cfg)
+
+    times = {name: time_scene(name, scenes16[name], scenes8[name], iters)
+             for name, iters in zip(sizes, (50, 10))}
+    for name, frames in zip(sizes, (50, 10)):
+        profile_scene(f"{name} default", scenes16[name], DEFAULT_CONFIG, frames)
+        profile_scene(f"{name} D=16 dual_view=True", scenes16[name], DUAL16, frames)
+        profile_scene(f"{name} D=8 auto", scenes8[name], CFG8, frames)
     big = times["1992x3008"]
+    pallas = "stereo_matching_cuda_tpu/ops/"
+    csrc = "stereo_matching_cuda_tpu_torch/csrc/"
     record = {"kernels": [
-        {"name": "guided_wta (K1)", "route": "cuda",
-         "source": "stereo_matching_cuda_tpu_torch/csrc/guided_wta.cu",
-         "replaces": "stereo_matching_cuda_tpu/ops/pallas_guided.py:848",
-         "launches": k1_launches, "max_abs_err": k1_err,
+        {"name": "guided_wta (K1)", "route": "cuda", "source": csrc + "guided_wta.cu",
+         "replaces": pallas + "pallas_guided.py:848",
+         "launches": default_counts["K1"], "max_abs_err": k1_err,
          "ms": big["k1_ms"], "plain_ms": big["k1_plain_ms"]},
-        {"name": "lr_fill (K2)", "route": "cuda",
-         "source": "stereo_matching_cuda_tpu_torch/csrc/lr_fill.cu",
-         "replaces": "stereo_matching_cuda_tpu/ops/pallas_post.py:69",
-         "launches": k2_launches, "max_abs_err": k2_err,
+        {"name": "lr_fill (K2)", "route": "cuda", "source": csrc + "lr_fill.cu",
+         "replaces": pallas + "pallas_post.py:69",
+         "launches": default_counts["K2"] + dual_counts["K2"], "max_abs_err": k2_err,
          "ms": big["k2_ms"], "plain_ms": big["k2_plain_ms"]},
+        {"name": "guided_wta_dual (K4)", "route": "cuda",
+         "source": csrc + "guided_wta_dual.cu",
+         "replaces": pallas + "pallas_guided.py:1322",
+         "launches": dual_counts["K4"], "max_abs_err": k4_err,
+         "ms": big["k4_ms"], "plain_ms": big["dual_plain_ms"]},
+        {"name": "guided_wta_dual_stream (K5)", "route": "cuda",
+         "source": csrc + "guided_wta_dual_stream.cu",
+         "replaces": pallas + "pallas_guided.py:1116",
+         "launches": dual_counts["K5"], "max_abs_err": k5_err,
+         "ms": big["k5_ms"], "plain_ms": big["dual_plain_ms"]},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,12 @@
 
 The counterpart of ``stereo_matching_cuda_tpu/config.py``: the reference
 tunables (``SystemIncludes.h:6-24``) with the same defaults, plus the
-framework fields that change results or routing.  The TPU scheduling
-knobs of the JAX config (dual_view, staged, unroll_max, y_sum,
-slice_group, vmem_mb, sw_pipeline, stream, dma_buffer) are not carried:
-none of them changes the function computed.
+framework fields that change results or routing.  ``dual_view`` and
+``stream`` route the kernel path to different kernels (both views in one
+pass: K4 tiled, K5 row-walking).  The other TPU scheduling knobs of the
+JAX config (staged, unroll_max, y_sum, slice_group, vmem_mb,
+sw_pipeline, dma_buffer) are not carried: none of them changes the
+function computed or the kernel run.
 """
 
 from __future__ import annotations
@@ -52,6 +54,16 @@ class StereoConfig:
     # the plain op-by-op path.  "auto" = on CUDA tensors outside parity
     # mode; True forces (CUDA tensors only); False never.
     fused: str | bool = "auto"
+    # Both views in one kernel pass (ops/fused_guided.py
+    # guided_wta_fused_dual: shared input windows and raw cost slice).
+    # "auto" = when the kernel path runs and size_d <= 8; True forces;
+    # False always runs K1 once per view.
+    dual_view: str | bool = "auto"
+    # Dual-view kernel choice: True = K5 (row walk down a band, the 2R
+    # y-halo paid once per band), False = K4 (tiles with their halo
+    # recomputed), None = K5 from 200,000 px when it fits one block's
+    # shared memory.  The single-view route ignores it.
+    stream: Optional[bool] = None
     # CUDA post kernel (ops/fused_post.py: LR check + occlusion fill).
     # None follows the matching path; bit-identical either way.
     post_fused: Optional[bool] = None
@@ -73,6 +85,12 @@ class StereoConfig:
         if self.fused not in (True, False, "auto"):
             raise ValueError(
                 f"fused must be True, False or 'auto', got {self.fused!r}")
+        if self.dual_view not in (True, False, "auto"):
+            raise ValueError(
+                f"dual_view must be True, False or 'auto', got {self.dual_view!r}")
+        if self.stream not in (None, True, False):
+            raise ValueError(
+                f"stream must be None, True or False, got {self.stream!r}")
         if self.post_fused not in (None, True, False):
             raise ValueError(
                 f"post_fused must be None, True or False, "

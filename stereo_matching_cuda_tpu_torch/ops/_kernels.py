@@ -1,10 +1,17 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
-The sources have a plain C interface.  At first use they are compiled by
-``nvcc`` for ``sm_90a`` into one shared library under ``_build/``, named
-by a hash of the sources and flags (a changed source builds anew), and
-loaded with ``ctypes``.  Nothing here runs at import time: the CPU tests
-import every module on machines with no CUDA toolkit.
+  K1 guided_wta.cu              one view, tiled (guided_wta)
+  K2 lr_fill.cu                 LR check + occlusion fill (lr_fill)
+  K4 guided_wta_dual.cu         both views in one pass, tiled (guided_wta_dual)
+  K5 guided_wta_dual_stream.cu  both views, row walk down a band
+                                (guided_wta_dual_stream)
+
+The sources have a plain C interface.  At first use each is compiled by
+its own ``nvcc`` for ``sm_90a`` (all started together), and the objects
+are linked into one shared library under ``_build/``, named by a hash of
+the sources, headers and flags (a changed file builds anew), and loaded
+with ``ctypes``.  Nothing here runs at import time: the CPU tests import
+every module on machines with no CUDA toolkit.
 
 Each C entry point returns the launch's ``cudaGetLastError()``; a
 non-zero code raises ``RuntimeError``.  There is no fallback.
@@ -28,17 +35,24 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_DUAL_ARGS = [_I] * 7 + [_F] * 5 + [ctypes.c_double, _P]
 _SIGNATURES = {
     "guided_wta_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _F, _F, _F, _F, _F, ctypes.c_double, _P]),
     "guided_wta_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     "lr_fill_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "lr_fill_smem_bytes": (ctypes.c_longlong, [_I]),
+    "guided_wta_dual_launch": (_I, [_P] * 7 + _DUAL_ARGS),
+    "guided_wta_dual_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
+    "guided_wta_dual_scratch_bytes": (ctypes.c_longlong, [_I] * 5),
+    "guided_wta_dual_stream_launch": (_I, [_P] * 7 + _DUAL_ARGS),
+    "guided_wta_dual_stream_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
+    "guided_wta_dual_stream_scratch_bytes": (ctypes.c_longlong, [_I] * 5),
 }
 
 
@@ -54,30 +68,40 @@ def _nvcc() -> str:
 
 @functools.lru_cache(maxsize=None)
 def build() -> dict:
-    """Compile ``csrc/*.cu`` (once per source hash) and load the library.
+    """Compile ``csrc/*.cu`` (once per hash of the sources and headers)
+    and load the library.
     Returns {"lib": CDLL, "path": str, "seconds": build time (0 when the
     library was already built), "log": nvcc's output}."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     so = BUILD_DIR / f"libstereo_kernels_{digest.hexdigest()[:16]}.so"
     seconds, log = 0.0, ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)],
-            capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+                     for src, obj in zip(sources, objs)]
+            logs = [proc.communicate()[0] for proc in procs]
+            log = "".join(logs)
+            failed = [src.name for src, proc in zip(sources, procs) if proc.returncode]
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+            lib_tmp = str(Path(tmp) / so.name)
+            proc = subprocess.run([nvcc, "-shared", "-o", lib_tmp, *objs],
+                                  capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+            os.replace(lib_tmp, so)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -121,6 +145,124 @@ def guided_wta(gray1, gray2, best, dmap, dmin, size_d, radius, constants,
         h, w, dmin, size_d, radius, th, *constants, float(eps),
         _stream(gray1))
     _check(err, "guided_wta_launch")
+
+
+def dual_reach(dmin: int, size_d: int) -> int:
+    """Column reach of the dual kernels' shared raw slice:
+    max(0, d_max) + max(0, -d_min) (the JAX package's dual_geometry)."""
+    return max(0, dmin + size_d - 1) + max(0, -dmin)
+
+
+# Shared memory of one SM on sm_90, and what the system reserves of it
+# for each resident block (bytes).
+_SMEM_PER_SM = 233_472
+_SMEM_RESERVED_PER_BLOCK = 1_024
+
+# CTAs per SM each dual kernel's tile or band is sized for: occupancy
+# first, then height (PERF.md, Findings: the dual-view tile sweeps).
+_K4_CTAS_PER_SM = 2
+_K5_CTAS_PER_SM = 3
+
+
+def _pick_rows(smem_by_rows: dict, per_sm: int, h: int, w: int,
+               n_sm: int) -> int | None:
+    """Of {rows: shared-memory bytes}, tallest first: among the heights
+    that fit the most CTAs on one SM (counting up to ``per_sm``), the
+    tallest that still gives a (h, w) frame as many CTAs (ceil(w/32) x
+    ceil(h/rows)) as the card has SMs, else the lowest.  None if none
+    fits one block.  The batch size does not enter, so a batch computes
+    each frame as a lone call does, bit for bit."""
+    occ = {r: min(per_sm, _SMEM_PER_SM // (b + _SMEM_RESERVED_PER_BLOCK))
+           for r, b in smem_by_rows.items() if b <= _SMEM_LIMIT}
+    if not occ:
+        return None
+    rows = [r for r in occ if occ[r] == max(occ.values())]
+    strips = -(-w // 32)
+    return next((r for r in rows if strips * -(-h // r) >= n_sm), rows[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def guided_wta_dual_tile_rows(radius: int, reach: int, h: int, w: int,
+                              n_sm: int) -> int:
+    """K4's output tile height, of 32, 16 and 8 (``_pick_rows``)."""
+    lib = build()["lib"]
+    th = _pick_rows({th: lib.guided_wta_dual_smem_bytes(radius, th, reach)
+                     for th in (32, 16, 8)}, _K4_CTAS_PER_SM, h, w, n_sm)
+    if th is None:
+        raise ValueError(f"radius {radius} with column reach {reach} needs more "
+                         "shared memory than one block has (dual-view kernel)")
+    return th
+
+
+# K5 band heights, tallest first (a taller band pays its 4R y-halo over
+# more output rows).
+_BANDS = tuple(range(128, 0, -8))
+
+
+@functools.lru_cache(maxsize=None)
+def dual_stream_fits(radius: int, reach: int) -> bool:
+    """Whether K5 fits one block's shared memory at its lowest band."""
+    return build()["lib"].guided_wta_dual_stream_smem_bytes(
+        radius, _BANDS[-1], reach) <= _SMEM_LIMIT
+
+
+@functools.lru_cache(maxsize=None)
+def guided_wta_dual_stream_band_rows(radius: int, reach: int, h: int, w: int,
+                                     n_sm: int) -> int:
+    """K5's band height, of 128, 120, .., 8 (``_pick_rows``)."""
+    lib = build()["lib"]
+    band = _pick_rows({b: lib.guided_wta_dual_stream_smem_bytes(radius, b, reach)
+                       for b in _BANDS}, _K5_CTAS_PER_SM, h, w, n_sm)
+    if band is None:
+        raise ValueError(f"radius {radius} with column reach {reach} needs "
+                         "more shared memory than one block has (dual-view "
+                         "row-walk kernel)")
+    return band
+
+
+def _dual_launch(name, rows, gray_l, gray_r, outs, dmin, size_d, radius,
+                 constants, eps) -> None:
+    """Launch `name`_launch with a scratch of `name`_scratch_bytes (the
+    CTAs' guide statistics, which stay in L2).  The scratch is freed on
+    return while the kernel may still run: the caching allocator hands
+    it out again only to work queued after it on the same stream."""
+    lib = build()["lib"]
+    n, h, w = gray_l.shape
+    scratch = torch.empty(getattr(lib, f"{name}_scratch_bytes")(radius, rows, n, h, w),
+                          dtype=torch.uint8, device=gray_l.device)
+    err = getattr(lib, f"{name}_launch")(
+        gray_l.data_ptr(), gray_r.data_ptr(), *(o.data_ptr() for o in outs),
+        scratch.data_ptr(), n, h, w, dmin, size_d, radius, rows, *constants,
+        float(eps), _stream(gray_l))
+    _check(err, f"{name}_launch")
+
+
+def guided_wta_dual(gray_l, gray_r, outs, dmin, size_d, radius, constants,
+                    eps) -> None:
+    """Launch K4 (csrc/guided_wta_dual.cu) on the current stream.
+    gray_l/gray_r: uint8 (N, H, W); outs: best_l, dmap_l, best_r, dmap_r
+    float32 (N, H, W)."""
+    _, h, w = gray_l.shape
+    th = guided_wta_dual_tile_rows(radius, dual_reach(dmin, size_d), h, w,
+                                   _n_sm(gray_l.device))
+    _dual_launch("guided_wta_dual", th, gray_l, gray_r, outs, dmin, size_d,
+                 radius, constants, eps)
+
+
+def guided_wta_dual_stream(gray_l, gray_r, outs, dmin, size_d, radius,
+                           constants, eps) -> None:
+    """Launch K5 (csrc/guided_wta_dual_stream.cu) on the current stream;
+    arguments as guided_wta_dual."""
+    _, h, w = gray_l.shape
+    band = guided_wta_dual_stream_band_rows(radius, dual_reach(dmin, size_d),
+                                            h, w, _n_sm(gray_l.device))
+    _dual_launch("guided_wta_dual_stream", band, gray_l, gray_r, outs, dmin,
+                 size_d, radius, constants, eps)
 
 
 def lr_fill(dl, dr, occ, filled, dmin, size_d, d_lr, d_occlusion,

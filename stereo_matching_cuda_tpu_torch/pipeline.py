@@ -4,8 +4,10 @@
 Grayscale both views → matching (cost + guided aggregation + WTA, left
 d∈[D_MIN,D_MAX], right d∈[-D_MAX,-D_MIN]) → LR check on the left map →
 occlusion fill (main.cu:37-214).  On CUDA tensors the matching runs
-kernel K1 once per view and the post stage kernel K2; the plain op-by-op
-path serves the CPU, parity mode and ``full_outputs``.
+kernel K1 once per view, or both views in one pass (K4 tiled, K5 row
+walk) on the dual-view route (``use_dual_view``, ``use_stream``), and the
+post stage runs kernel K2; the plain op-by-op path serves the CPU,
+parity mode and ``full_outputs``.
 """
 
 from __future__ import annotations
@@ -15,14 +17,16 @@ import torch
 
 from .config import StereoConfig, DEFAULT_CONFIG
 from . import ops
-from .ops.fused_guided import guided_wta_fused
+from .ops import _kernels
+from .ops.fused_guided import guided_wta_fused, guided_wta_fused_dual
 from .ops.fused_post import lr_fill_fused
 
 
 def use_fused_path(cfg: StereoConfig, device: torch.device | str,
                    full_outputs: bool = False) -> bool:
-    """Whether the matching stage runs kernel K1: tensors on CUDA,
-    ``fused`` not False, parity mode off and no intermediates requested.
+    """Whether the matching stage runs a kernel (K1, K4 or K5): tensors
+    on CUDA, ``fused`` not False, parity mode off and no intermediates
+    requested.
     ``fused=True`` off CUDA raises: the kernel path has no CPU form."""
     on_cuda = torch.device(device).type == "cuda"
     if cfg.fused is True and not on_cuda:
@@ -43,6 +47,45 @@ def use_fused_post(cfg: StereoConfig, device: torch.device | str,
     return cfg.post_fused
 
 
+# Frame area from which the dual route takes K5 when ``cfg.stream`` is
+# None: the JAX package's _STREAM_PIXELS (pipeline.py:174,241-243).
+STREAM_PIXELS = 200_000
+
+# Largest disparity count the dual route takes when ``dual_view`` is
+# "auto".
+DUAL_MAX_D = 8
+
+
+def use_dual_view(cfg: StereoConfig) -> bool:
+    """Whether the kernel path computes both views in one pass (K4/K5)
+    instead of K1 once per view: ``dual_view`` True, or "auto" and
+    size_d <= 8.  This is the JAX package's rule as it resolves with its
+    strategy knobs on auto: ``use_dual_view`` compares size_d with
+    ``unroll_max`` (pipeline.py:54-61), and the strategy tables set
+    unroll_max=8 wherever dual_view is "auto" and size_d <= 32
+    (pipeline.py:146,186,223-240).  Where a user forces ``fused=True``
+    or sets ``stream`` below 200,000 px, JAX leaves its tables off and
+    takes its dual kernel up to 32 slices; the port has no unroll knob
+    and keeps K1 there (same function, same bound)."""
+    return cfg.dual_view is True or (cfg.dual_view == "auto"
+                                     and cfg.size_d <= DUAL_MAX_D)
+
+
+def use_stream(cfg: StereoConfig, h: int, w: int) -> bool:
+    """On the dual route, K5 (True) or K4 (False) for (h, w) frames:
+    ``cfg.stream`` when set, else from STREAM_PIXELS on, the JAX rule
+    on every dual route (its _SMALL_STRATEGY needs size_d > 8 there,
+    pipeline.py:229-240).  Like JAX's stream_fits net
+    (pipeline.py:277-287), an auto choice falls back to K4 when K5 does
+    not fit one block's shared memory; an explicit ``stream=True`` that
+    does not fit raises at launch.  The single-view route ignores
+    ``stream``: K1 serves it either way until K3 has a port."""
+    if cfg.stream is not None:
+        return cfg.stream
+    return h * w >= STREAM_PIXELS and _kernels.dual_stream_fits(
+        cfg.radius, _kernels.dual_reach(cfg.d_min, cfg.size_d))
+
+
 def _post(dmap_l, dmap_r, cfg: StereoConfig, full_outputs: bool = False):
     """(occlusion map, filled map): kernel K2 or the plain ops."""
     if use_fused_post(cfg, dmap_l.device, full_outputs):
@@ -55,6 +98,8 @@ def _match(gl, gr, cfg: StereoConfig, full_outputs: bool):
     """Both views' (best, dmap), plus (mean_l, mean_r, cost0_l, cost0_r)
     when ``full_outputs`` (None otherwise)."""
     if use_fused_path(cfg, gl.device, full_outputs):
+        if use_dual_view(cfg):
+            return (*guided_wta_fused_dual(gl, gr, cfg), None, None, None, None)
         best_l, dmap_l = guided_wta_fused(gl, gr, cfg.d_min, cfg)
         best_r, dmap_r = guided_wta_fused(gr, gl, cfg.d_min_right, cfg)
         return best_l, dmap_l, best_r, dmap_r, None, None, None, None

@@ -20,8 +20,8 @@ from stereo_matching_cuda_tpu_torch.pipeline import (
 
 FIELDS = [f.name for f in dataclasses.fields(StereoConfig)]
 PROPS = ["size_d", "d_min_right", "d_occlusion", "v_min", "window", "shift_max"]
-TPU_KNOBS = ["dual_view", "staged", "unroll_max", "y_sum", "slice_group",
-             "vmem_mb", "sw_pipeline", "stream", "dma_buffer"]
+TPU_KNOBS = ["staged", "unroll_max", "y_sum", "slice_group",
+             "vmem_mb", "sw_pipeline", "dma_buffer"]
 
 
 def _same(port, jax_cfg):
@@ -49,6 +49,7 @@ def test_fields_are_the_jax_fields_minus_tpu_knobs():
     {"exact_integral": True, "fused": False, "d_chunk": 4},
     {"post_fused": True, "r_w": 0.25, "g_w": 0.5, "b_w": 0.25},
     {"stream": True, "unroll_max": 8, "vmem_mb": 32, "th_grad": 3.0},
+    {"dual_view": True, "stream": False},
 ])
 def test_config_from_jax_round_trips(kw):
     jax_cfg = jax_config.StereoConfig(**kw)
@@ -67,6 +68,8 @@ def test_config_from_jax_round_trips(kw):
     {"fused": "yes"},
     {"post_fused": "auto"},
     {"fused": True, "exact_integral": True},
+    {"dual_view": "yes"},
+    {"stream": "on"},
 ])
 def test_validation_matches_jax(kw):
     with pytest.raises(ValueError):

@@ -1,5 +1,6 @@
-"""Kernels K1 and K2 on a CUDA GPU against their plain versions on the
-same card.  Skipped without a GPU; on a machine with one (and no JAX):
+"""Kernels K1, K2, K4 and K5 on a CUDA GPU against their plain versions
+on the same card, and the launch counts of the kernel routes.  Skipped
+without a GPU; on a machine with one (and no JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -12,7 +13,8 @@ import torch
 
 from stereo_matching_cuda_tpu_torch import DEFAULT_CONFIG, StereoConfig, compute_disparity
 from stereo_matching_cuda_tpu_torch.ops.fused_guided import (
-    guided_wta_fused, guided_wta_fused_reference)
+    guided_wta_fused, guided_wta_fused_dual, guided_wta_fused_dual_reference,
+    guided_wta_fused_reference)
 from stereo_matching_cuda_tpu_torch.ops.fused_post import lr_fill_fused, lr_fill_reference
 from stereo_matching_cuda_tpu_torch.utils.synth import make_scene
 
@@ -77,4 +79,49 @@ def test_main_path_launches_each_kernel(dev):
     sc = make_scene(96, 160, ndisp=16)
     out = compute_disparity(sc["left"], sc["right"], DEFAULT_CONFIG, dev)
     assert (guided_wta_fused.launches, lr_fill_fused.launches) == (2, 1)
+    assert np.isfinite(out["occlusion_filled"]).all()
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["K4", "K5"])
+@pytest.mark.parametrize("h,w,d_min,d_max", [
+    (64, 96, -15, 0), (33, 130, -7, 0), (40, 70, -8, 8), (48, 160, -63, 0)])
+def test_dual_matches_plain(dev, stream, h, w, d_min, d_max):
+    """Each view within K1's bound; the stream flag picks the kernel."""
+    cfg = StereoConfig(d_min=d_min, d_max=d_max, stream=stream)
+    g1, g2 = _pair(h, w, h + w, dev)
+    guided_wta_fused_dual.k4_launches = guided_wta_fused_dual.k5_launches = 0
+    outs = guided_wta_fused_dual(g1, g2, cfg)
+    ref = guided_wta_fused_dual_reference(g1, g2, cfg)
+    assert (guided_wta_fused_dual.k4_launches,
+            guided_wta_fused_dual.k5_launches) == ((0, 1) if stream else (1, 0))
+    for v in (0, 2):
+        assert int((outs[v + 1] != ref[v + 1]).sum()) <= max(4, 2e-3 * h * w)
+        torch.testing.assert_close(outs[v], ref[v], atol=2e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["K4", "K5"])
+def test_dual_batch_equals_per_frame(dev, stream):
+    cfg = StereoConfig(stream=stream)
+    pairs = [_pair(50, 90, s, dev) for s in (1, 2, 3)]
+    outs = guided_wta_fused_dual(torch.stack([p[0] for p in pairs]),
+                                 torch.stack([p[1] for p in pairs]), cfg)
+    for i, (a, b) in enumerate(pairs):
+        for j, t in enumerate(guided_wta_fused_dual(a, b, cfg)):
+            assert torch.equal(outs[j][i], t), (i, j)
+
+
+@pytest.mark.parametrize("kw,counts", [
+    ({"dual_view": True}, (0, 1, 0, 1)),
+    ({"d_min": -7}, (0, 1, 0, 1)),
+    ({"dual_view": True, "stream": True}, (0, 0, 1, 1)),
+    ({"d_min": -7, "dual_view": False}, (2, 0, 0, 1))])
+def test_dual_route_launch_counts(dev, kw, counts):
+    """(K1, K4, K5, K2) launches of one 96x160 frame."""
+    guided_wta_fused.launches = lr_fill_fused.launches = 0
+    guided_wta_fused_dual.k4_launches = guided_wta_fused_dual.k5_launches = 0
+    sc = make_scene(96, 160, ndisp=16)
+    out = compute_disparity(sc["left"], sc["right"],
+                            dataclasses.replace(DEFAULT_CONFIG, **kw), dev)
+    assert (guided_wta_fused.launches, guided_wta_fused_dual.k4_launches,
+            guided_wta_fused_dual.k5_launches, lr_fill_fused.launches) == counts
     assert np.isfinite(out["occlusion_filled"]).all()
