@@ -3,18 +3,25 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA GPU, ``nvcc`` and
-``nvidia-smi``.  It builds the hand-written kernels from ``csrc/``,
-checks each (K1, K2, K4, K5) against its plain PyTorch version on the
-card, drives the kernel paths of ``compute_disparity`` on a 288x384
-scene and a 1992x3008 (6 MP) scene: the default single-view path (K1 +
-K2), the dual-view path forced with ``dual_view=True`` and the one the
-automatic rule takes at 8 disparities (K4 at 288x384, K5 at 6 MP, + K2),
-checks the launch counts and the results, times kernel and plain paths
-with CUDA events, splits each path's device time by kernel and reads
-the device's idle share with torch.profiler, and prints two JSON lines
-last: the per-kernel record, then ``{"ok": true, "device": ...}``.  Any
-failure raises and exits non-zero; with no CUDA device it exits
-non-zero at once.
+``nvidia-smi``.  It builds the hand-written kernels from ``csrc/`` and
+checks each against its plain PyTorch version on the card: the
+single-view kernels K3 (tiled) and K1 (row walk), the dual-view kernels
+K4 and K5 and the post kernel K2, on textured pairs and on the frames of
+every path, and their B=3 batches against per-frame launches.  It then
+drives the kernel paths of the port's entry points with their launch
+counts asserted: ``compute_disparity`` on the default path (K3 + K2) of a
+288x384 and a 1992x3008 (6 MP) scene, with ``stream=True`` (K1 + K2), on
+the wide-range frames (288x384 at 64 disparities, 1988x2948 at 128:
+K3 + K2), on the dual-view path (``dual_view=True`` and the automatic
+rule at 8 disparities: K4 at 288x384, K5 at 6 MP, + K2),
+``stereo_pipeline_batch`` on eight 288x384 frames (one K3 per view and
+one K2 for the batch) and the box matcher (K2 only).  It holds every
+path's outputs to the plain path's, times kernels, paths and plain
+versions with CUDA events, splits each path's device time by kernel and
+reads the device's idle share with torch.profiler, and prints two JSON
+lines last: the per-kernel record (with each kernel's bound), then
+``{"ok": true, "device": ...}``.  Any failure raises and exits non-zero;
+with no CUDA device it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -27,8 +34,11 @@ import sys
 import numpy as np
 import torch
 
-from stereo_matching_cuda_tpu_torch import DEFAULT_CONFIG, StereoConfig, compute_disparity
+from stereo_matching_cuda_tpu_torch import (
+    DEFAULT_CONFIG, BoxStereoMatcher, StereoConfig, compute_disparity,
+    stereo_pipeline_batch)
 from stereo_matching_cuda_tpu_torch.metrics import bad_pixel_rate
+from stereo_matching_cuda_tpu_torch.models import box_stereo_pipeline
 from stereo_matching_cuda_tpu_torch.ops import _kernels, rgb_to_grayscale
 from stereo_matching_cuda_tpu_torch.ops.fused_guided import (
     guided_wta_fused, guided_wta_fused_dual, guided_wta_fused_dual_reference,
@@ -40,19 +50,48 @@ from stereo_matching_cuda_tpu_torch.utils.synth import make_scene
 DEV = "cuda"
 PLAIN = dataclasses.replace(DEFAULT_CONFIG, fused=False, post_fused=False)
 CFG64 = StereoConfig(d_min=-63, d_max=0)
+CFG128 = StereoConfig(d_min=-127, d_max=0)       # the bench.py:193 wide range
 CFG8 = StereoConfig(d_min=-7, d_max=0)           # 8 disparities: the auto dual route
+STRADDLE = StereoConfig(d_min=-8, d_max=8)
 DUAL16 = dataclasses.replace(DEFAULT_CONFIG, dual_view=True)
+STREAM16 = dataclasses.replace(DEFAULT_CONFIG, stream=True)
 # Kernel function names, as the profiler reports them, by layer.
-KERNEL_NAMES = {"guided_wta_kernel": "K1", "lr_fill_kernel": "K2",
-                "guided_wta_dual_kernel": "K4",
+KERNEL_NAMES = {"guided_wta_stream_kernel": "K1", "lr_fill_kernel": "K2",
+                "guided_wta_kernel": "K3", "guided_wta_dual_kernel": "K4",
                 "guided_wta_dual_stream_kernel": "K5"}
-# K1's bound: the fused fast-path class of the JAX kernels
-# (tests/test_pallas_fused.py:55-57) — near-tie label flips only.
+COUNT_NAMES = ("K1", "K2", "K3", "K4", "K5")
+# The matching kernels' bound: the fused fast-path class of the JAX
+# kernels (tests/test_pallas_fused.py:55-57) — near-tie label flips only.
 K1_ATOL, K1_RTOL = 2e-3, 1e-4
+# Slices per chunk of the plain version above 32 disparities: unchunked,
+# its float64 box sums over a (128, H, W) volume take tens of GB.  The
+# chunked scan keeps the ascending tie rule (tests/test_models.py:64 pins
+# chunked = unchunked), so the results are the same.
+PLAIN_CHUNK = 16
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
+# memory bytes/s and float32 operations/s outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+# Float operations of the guided WTA per pixel and slice with O(1) box
+# sums: cost 9 (two absolute differences, two truncations, the blend),
+# I*cost 1, the box means of cost and I*cost 10 (two running-sum updates
+# of two terms and a scale each), a and b 5, the box means of a and b 10,
+# q 2, the WTA compare and select 2.  Per pixel once: both gradients 4,
+# the box means of I and I^2 10, var and c 4.
+OPS_PER_SLICE = 39
+OPS_PER_PIXEL = 18
+RAW_COST_OPS = 9         # the dual kernels compute the raw cost once for both views
+K2_BYTES_PER_PIXEL = 16  # two float32 maps in, two out
 
 
 def k1_max_mismatch(n: int) -> int:
     return max(4, int(2e-3 * n))
+
+
+def chunked(cfg):
+    """``cfg`` with its plain version's slices chunked (PLAIN_CHUNK)."""
+    return dataclasses.replace(cfg, d_chunk=PLAIN_CHUNK) if cfg.size_d > 2 * PLAIN_CHUNK else cfg
 
 
 def textured_pair(h, w, seed):
@@ -65,42 +104,54 @@ def textured_pair(h, w, seed):
             torch.from_numpy(np.ascontiguousarray(base[:, 10:10 + w])).to(DEV))
 
 
-def check_k1(grays):
-    """K1 against guided_wta_fused_reference on the card, on textured
-    pairs and on both views of each main-path frame (``grays``: name ->
-    gray pair).  Returns max |Δbest| and each frame's K1 label maps."""
-    worst = 0.0
+def check_single(grays):
+    """K3 (stream=False) and K1 (stream=True) against
+    guided_wta_fused_reference on the card: textured pairs at 16 and 64
+    disparities and straddling zero, and both views of each scene frame
+    (``grays``: name -> (cfg, gray pair)); then B=3 batches against
+    per-frame launches, bit for bit.  Returns each kernel's max |Δbest|
+    and its (cfg, dmap_l, dmap_r) of every scene frame for K2."""
     cases = [("textured", (288, 384), -15, DEFAULT_CONFIG),
              ("textured", (288, 384), 0, DEFAULT_CONFIG),
              ("textured", (33, 130), -15, DEFAULT_CONFIG),
              ("textured", (33, 130), 0, DEFAULT_CONFIG),
-             ("textured", (200, 400), -63, CFG64)]
-    for name in grays:
-        cases += [(name, None, DEFAULT_CONFIG.d_min, DEFAULT_CONFIG),
-                  (name, None, DEFAULT_CONFIG.d_min_right, DEFAULT_CONFIG)]
-    maps = {name: {} for name in grays}
+             ("textured", (200, 400), -63, CFG64),
+             ("textured", (64, 160), -8, STRADDLE)]
+    for name, (cfg, _) in grays.items():
+        cases += [(name, None, cfg.d_min, cfg), (name, None, cfg.d_min_right, cfg)]
+    worst = {"K1": 0.0, "K3": 0.0}
+    maps = {kernel: {name: {} for name in grays} for kernel in worst}
     for name, shape, dmin, cfg in cases:
-        if shape is None:
-            g1, g2 = grays[name]
-        else:
-            g1, g2 = textured_pair(*shape, seed=sum(shape))
-        if dmin == cfg.d_min_right:
+        g1, g2 = grays[name][1] if shape is None else textured_pair(*shape, seed=sum(shape))
+        if dmin == cfg.d_min_right != cfg.d_min:
             g1, g2 = g2, g1
         h, w = g1.shape
-        best, dmap = guided_wta_fused(g1, g2, dmin, cfg)
-        best_p, dmap_p = guided_wta_fused_reference(g1, g2, dmin, cfg)
-        torch.cuda.synchronize()
-        mism = int((dmap != dmap_p).sum())
-        err = float((best - best_p).abs().max())
-        print(f"K1 {name} {h}x{w} dmin={dmin} D={cfg.size_d}: {mism} label "
-              f"mismatches (bound {k1_max_mismatch(h * w)}), max |best-plain| {err:.3g}")
-        assert mism <= k1_max_mismatch(h * w), "K1 disagrees with its plain version"
-        torch.testing.assert_close(best, best_p, atol=K1_ATOL, rtol=K1_RTOL)
-        worst = max(worst, err)
-        if shape is None:
-            maps[name][dmin] = dmap
-    return worst, {name: (m[DEFAULT_CONFIG.d_min], m[DEFAULT_CONFIG.d_min_right])
-                   for name, m in maps.items()}
+        best_p, dmap_p = guided_wta_fused_reference(g1, g2, dmin, chunked(cfg))
+        for kernel, stream in (("K3", False), ("K1", True)):
+            best, dmap = guided_wta_fused(g1, g2, dmin, dataclasses.replace(cfg, stream=stream))
+            torch.cuda.synchronize()
+            mism = int((dmap != dmap_p).sum())
+            err = float((best - best_p).abs().max())
+            print(f"{kernel} {name} {h}x{w} dmin={dmin} D={cfg.size_d}: {mism} label "
+                  f"mismatches (bound {k1_max_mismatch(h * w)}), max |best-plain| {err:.3g}")
+            assert mism <= k1_max_mismatch(h * w), f"{kernel} disagrees with its plain version"
+            torch.testing.assert_close(best, best_p, atol=K1_ATOL, rtol=K1_RTOL)
+            worst[kernel] = max(worst[kernel], err)
+            if shape is None:
+                maps[kernel][name][dmin] = dmap
+        del best_p, dmap_p
+    pairs = [textured_pair(96, 200, seed=s) for s in (1, 2, 3)]
+    for kernel, stream in (("K3", False), ("K1", True)):
+        cfg = dataclasses.replace(DEFAULT_CONFIG, stream=stream)
+        batch = guided_wta_fused(torch.stack([p[0] for p in pairs]),
+                                 torch.stack([p[1] for p in pairs]), cfg.d_min, cfg)
+        for i, (g1, g2) in enumerate(pairs):
+            for j, t in enumerate(guided_wta_fused(g1, g2, cfg.d_min, cfg)):
+                assert torch.equal(batch[j][i], t), f"{kernel} batch frame {i} output {j}"
+        print(f"{kernel} B=3 batch of 96x200: equal to per-frame launches, bit for bit")
+    return worst, {kernel: [(grays[name][0], m[grays[name][0].d_min],
+                             m[grays[name][0].d_min_right]) for name, m in by_name.items()]
+                   for kernel, by_name in maps.items()}
 
 
 def label_maps(cfg, h, w, seed):
@@ -112,9 +163,10 @@ def label_maps(cfg, h, w, seed):
 
 def check_k2(kernel_maps):
     """K2 against lr_fill_reference on the card: bit-identical on random
-    label maps and on the label maps K1, K4 and K5 gave each main-path
-    frame (``kernel_maps``: list of (cfg, left, right)); returns the
-    largest |difference| seen (0.0 when it holds)."""
+    label maps and on the label maps every matching kernel gave each
+    scene frame (``kernel_maps``: list of (cfg, left, right)), and a B=3
+    batch equal to per-frame launches; returns the largest |difference|
+    seen (0.0 when it holds)."""
     cfg128 = StereoConfig(d_min=-127, d_max=0)
     cases = [(DEFAULT_CONFIG, *label_maps(DEFAULT_CONFIG, 288, 384, 0)),
              (cfg128, *label_maps(cfg128, 40, 300, 1))]
@@ -134,22 +186,28 @@ def check_k2(kernel_maps):
         assert n_occ == 0 and n_fill == 0, "K2 is not bit-identical to its plain version"
         worst = max(worst, float((occ - occ_p).abs().max()),
                     float((filled - filled_p).abs().max()))
+    frames = [label_maps(DEFAULT_CONFIG, 96, 200, s) for s in (3, 4, 5)]
+    occ, filled = lr_fill_fused(torch.stack([f[0] for f in frames]),
+                                torch.stack([f[1] for f in frames]), DEFAULT_CONFIG)
+    for i, (dl, dr) in enumerate(frames):
+        o, f = lr_fill_fused(dl, dr, DEFAULT_CONFIG)
+        assert torch.equal(occ[i], o) and torch.equal(filled[i], f), f"K2 batch frame {i}"
+    print("K2 B=3 batch of 96x200: equal to per-frame launches, bit for bit")
     return worst
 
 
 def check_dual(kernel, grays):
     """K4 (``kernel`` "K4", stream=False) or K5 ("K5", stream=True)
-    against guided_wta_fused_dual_reference on the card, per view at K1's
-    bound: textured pairs at 16 and 8 disparities, a range straddling
-    zero, 64 disparities (K5 only where it fits one block; otherwise a
-    forced launch must raise), a B=3 batch against per-frame launches
-    (bit for bit), and both views of each main-path frame (``grays``:
-    name -> (cfg, gray pair)).  Returns max |Δbest| and the frames'
-    (cfg, dmap_l, dmap_r) for K2."""
+    against guided_wta_fused_dual_reference on the card, per view at the
+    matching kernels' bound: textured pairs at 16 and 8 disparities, a
+    range straddling zero, 64 disparities (K5 only where it fits one
+    block; otherwise a forced launch must raise), a B=3 batch against
+    per-frame launches (bit for bit), and both views of each main-path
+    frame (``grays``: name -> (cfg, gray pair)).  Returns max |Δbest| and
+    the frames' (cfg, dmap_l, dmap_r) for K2."""
     stream = kernel == "K5"
-    straddle = StereoConfig(d_min=-8, d_max=8)
     cases = [("textured", (288, 384), DEFAULT_CONFIG), ("textured", (288, 384), CFG8),
-             ("textured", (33, 130), DEFAULT_CONFIG), ("textured", (64, 160), straddle)]
+             ("textured", (33, 130), DEFAULT_CONFIG), ("textured", (64, 160), STRADDLE)]
     if stream and not _kernels.dual_stream_fits(
             CFG64.radius, _kernels.dual_reach(CFG64.d_min, CFG64.size_d)):
         g1, g2 = textured_pair(200, 400, seed=600)
@@ -192,30 +250,33 @@ def check_dual(kernel, grays):
     return worst, maps
 
 
-COUNT_NAMES = ("K1", "K2", "K4", "K5")
-
-
 def reset_counts():
-    guided_wta_fused.launches = 0
+    guided_wta_fused.k1_launches = 0
+    guided_wta_fused.k3_launches = 0
     lr_fill_fused.launches = 0
     guided_wta_fused_dual.k4_launches = 0
     guided_wta_fused_dual.k5_launches = 0
 
 
 def counts():
-    return (guided_wta_fused.launches, lr_fill_fused.launches,
-            guided_wta_fused_dual.k4_launches, guided_wta_fused_dual.k5_launches)
+    return (guided_wta_fused.k1_launches, lr_fill_fused.launches,
+            guided_wta_fused.k3_launches, guided_wta_fused_dual.k4_launches,
+            guided_wta_fused_dual.k5_launches)
+
+
+def launches(k1=0, k2=0, k3=0, k4=0, k5=0):
+    return dict(zip(COUNT_NAMES, (k1, k2, k3, k4, k5)))
 
 
 def drive_path(path, runs):
-    """compute_disparity on each (name, scene, cfg, expected launches per
-    kernel) of one kernel path, with every count set to 0 just before and
-    read just after.  Returns the outputs and the path's counts."""
+    """Each (name, call, expected launches per kernel) of one path, with
+    every count set to 0 just before the path and read just after.
+    Returns the calls' outputs and the path's counts."""
     reset_counts()
     outs = []
-    for name, sc, cfg, expect in runs:
+    for name, call, expect in runs:
         before = counts()
-        outs.append(compute_disparity(sc["left"], sc["right"], cfg, DEV))
+        outs.append(call())
         delta = dict(zip(COUNT_NAMES, (a - b for a, b in zip(counts(), before))))
         print(f"{path} {name}: launches " + ", ".join(f"{k} {v}" for k, v in delta.items()))
         assert delta == expect, f"{path} {name}: expected launches {expect}, got {delta}"
@@ -224,15 +285,23 @@ def drive_path(path, runs):
     return outs, total
 
 
-def launches(k1=0, k2=0, k4=0, k5=0):
-    return {"K1": k1, "K2": k2, "K4": k4, "K5": k5}
+def drive_frames(path, runs):
+    """``drive_path`` over compute_disparity on each (name, scene, cfg,
+    expected launches) of ``runs``; then each frame is held to the plain
+    path (``check_outputs``).  Returns the path's counts."""
+    outs, total = drive_path(path, [
+        (name, lambda sc=sc, cfg=cfg: compute_disparity(sc["left"], sc["right"], cfg, DEV),
+         expect) for name, sc, cfg, expect in runs])
+    for (name, sc, cfg, _), out in zip(runs, outs):
+        check_outputs(name, sc, out, cfg)
+    return total
 
 
 def check_outputs(name, sc, out, cfg=DEFAULT_CONFIG):
     """Shapes, finiteness and agreement with the plain path on the card."""
     plain = compute_disparity(
         sc["left"], sc["right"],
-        dataclasses.replace(cfg, fused=False, post_fused=False), DEV)
+        chunked(dataclasses.replace(cfg, fused=False, post_fused=False)), DEV)
     h, w = sc["gt"].shape
     n = h * w
     for key, v in out.items():
@@ -251,6 +320,29 @@ def check_outputs(name, sc, out, cfg=DEFAULT_CONFIG):
     return bad_k, bad_p
 
 
+def check_batch(scenes, out):
+    """Each frame of the batch path equals a lone kernel-path frame bit
+    for bit and meets the plain path's bounds."""
+    for i, sc in enumerate(scenes):
+        lone = stereo_pipeline(torch.from_numpy(sc["left"]).to(DEV),
+                               torch.from_numpy(sc["right"]).to(DEV), DEFAULT_CONFIG)
+        for k, v in lone.items():
+            assert torch.equal(out[k][i], v), f"batch frame {i} {k} differs from a lone frame"
+        check_outputs(f"batch frame {i}", sc, {k: v[i].cpu().numpy() for k, v in out.items()})
+    print(f"batch: {len(scenes)} frames equal to lone frames, bit for bit")
+
+
+def check_box(sc, out):
+    """The box matcher's kernel path (K2) against its plain post stage,
+    bit for bit."""
+    plain = BoxStereoMatcher(dataclasses.replace(DEFAULT_CONFIG, post_fused=False),
+                             device=DEV).compute(sc["left"], sc["right"])
+    for k, v in plain.items():
+        assert np.array_equal(out[k], v), f"box {k} differs from its plain path"
+    bad = bad_pixel_rate(np.abs(out["occlusion_filled"]), sc["gt"], 2.0)
+    print(f"box 288x384: equal to its plain path on every key, bad-2.0 {bad:.4f}%")
+
+
 def cuda_ms(fn, iters, warmup=3):
     """Mean ms per call of ``fn`` on the card, CUDA events after warm-up."""
     for _ in range(warmup):
@@ -266,14 +358,17 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def on_card(sc):
+    return (torch.from_numpy(sc["left"]).to(DEV), torch.from_numpy(sc["right"]).to(DEV))
+
+
 def time_scene(name, sc, sc8, iters):
-    """ms per frame (default, dual D=16 and auto D=8 kernel paths, the
-    plain path) and per kernel launch (K4 and K5 forced at D=16, each
-    against two K1 launches) for one frame size."""
-    left = torch.from_numpy(sc["left"]).to(DEV)
-    right = torch.from_numpy(sc["right"]).to(DEV)
-    left8 = torch.from_numpy(sc8["left"]).to(DEV)
-    right8 = torch.from_numpy(sc8["right"]).to(DEV)
+    """ms per frame (default, stream=True, dual D=16 and auto D=8 kernel
+    paths, the plain path) and per kernel launch (K3 and K1 on the left
+    view, K4 and K5 forced at D=16, K2) with their plain versions, for
+    one frame size."""
+    left, right = on_card(sc)
+    left8, right8 = on_card(sc8)
     cfg = DEFAULT_CONFIG
     gl = rgb_to_grayscale(left, cfg)
     gr = rgb_to_grayscale(right, cfg)
@@ -283,11 +378,13 @@ def time_scene(name, sc, sc8, iters):
     few = max(2, iters // 4)
     t = {
         "frame_ms": cuda_ms(lambda: stereo_pipeline(left, right, cfg), iters),
+        "stream_frame_ms": cuda_ms(lambda: stereo_pipeline(left, right, STREAM16), iters),
         "dual_frame_ms": cuda_ms(lambda: stereo_pipeline(left, right, DUAL16), iters),
         "d8_frame_ms": cuda_ms(lambda: stereo_pipeline(left8, right8, CFG8), iters),
         "frame_plain_ms": cuda_ms(lambda: stereo_pipeline(left, right, PLAIN), few),
-        "k1_ms": cuda_ms(lambda: guided_wta_fused(gl, gr, cfg.d_min, cfg), iters),
-        "k1_plain_ms": cuda_ms(
+        "k3_ms": cuda_ms(lambda: guided_wta_fused(gl, gr, cfg.d_min, cfg), iters),
+        "k1_ms": cuda_ms(lambda: guided_wta_fused(gl, gr, cfg.d_min, STREAM16), iters),
+        "single_plain_ms": cuda_ms(
             lambda: guided_wta_fused_reference(gl, gr, cfg.d_min, cfg), few),
         "k4_ms": cuda_ms(lambda: guided_wta_fused_dual(gl, gr, k4), iters),
         "k5_ms": cuda_ms(lambda: guided_wta_fused_dual(gl, gr, k5), iters),
@@ -296,6 +393,44 @@ def time_scene(name, sc, sc8, iters):
         "k2_plain_ms": cuda_ms(lambda: lr_fill_reference(dl, dr, cfg), iters),
     }
     print(f"timing {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    return t
+
+
+def time_wide(name, sc, cfg, iters):
+    """ms per frame of the wide-range kernel path (K3) and per launch of
+    K3 and K1 on the left view, with the plain single view (chunked)."""
+    left, right = on_card(sc)
+    gl = rgb_to_grayscale(left, cfg)
+    gr = rgb_to_grayscale(right, cfg)
+    stream = dataclasses.replace(cfg, stream=True)
+    t = {
+        "frame_ms": cuda_ms(lambda: stereo_pipeline(left, right, cfg), iters, warmup=1),
+        "k3_ms": cuda_ms(lambda: guided_wta_fused(gl, gr, cfg.d_min, cfg), iters, warmup=1),
+        "k1_ms": cuda_ms(lambda: guided_wta_fused(gl, gr, cfg.d_min, stream), iters, warmup=1),
+        "single_plain_ms": cuda_ms(
+            lambda: guided_wta_fused_reference(gl, gr, cfg.d_min, chunked(cfg)), 1, warmup=1),
+    }
+    print(f"timing {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    return t
+
+
+def time_batch_and_box(batch, sc, lone_frame_ms, iters):
+    """ms per frame of stereo_pipeline_batch (B frames in one call)
+    against the lone frame's, and of the box matcher's kernel and plain
+    paths, at 288x384."""
+    left, right = on_card(sc)
+    b = batch[0].shape[0]
+    box_plain = dataclasses.replace(DEFAULT_CONFIG, fused=False, post_fused=False)
+    t = {
+        "batch_frame_ms": cuda_ms(lambda: stereo_pipeline_batch(*batch, DEFAULT_CONFIG),
+                                  iters) / b,
+        "lone_frame_ms": lone_frame_ms,
+        "box_frame_ms": cuda_ms(lambda: box_stereo_pipeline(left, right, DEFAULT_CONFIG),
+                                iters),
+        "box_plain_frame_ms": cuda_ms(lambda: box_stereo_pipeline(left, right, box_plain),
+                                      iters),
+    }
+    print("timing 288x384 batch and box: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
     return t
 
 
@@ -308,27 +443,25 @@ def kernel_layer(kname):
     return found[0] if found else "other"
 
 
-def profile_scene(name, sc, cfg, frames, warmup=5):
-    """Device time per frame by layer (K1, K2, K4, K5, the rest) and the
-    device's idle share over ``frames`` frames of the kernel path under
-    ``cfg``, from torch.profiler: idle share = 1 - (union of
+def profile_path(name, call, frames, per_call=1, warmup=5):
+    """Device time per frame by layer (K1-K5, the rest) and the device's
+    idle share over ``frames`` calls of ``call`` (each of ``per_call``
+    frames), from torch.profiler: idle share = 1 - (union of
     device-activity intervals) / (first start to last end)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    left = torch.from_numpy(sc["left"]).to(DEV)
-    right = torch.from_numpy(sc["right"]).to(DEV)
     for _ in range(warmup):
-        stereo_pipeline(left, right, cfg)
+        call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(frames):
-            stereo_pipeline(left, right, cfg)
+            call()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     assert spans, f"{name}: the profiler saw no device activity"
-    layers = {"K1": 0.0, "K2": 0.0, "K4": 0.0, "K5": 0.0, "other": 0.0}
+    layers = dict.fromkeys((*COUNT_NAMES, "other"), 0.0)
     busy, cur_start, cur_end = 0.0, *spans[0][:2]
     for start, end, kname in spans:
         layers[kernel_layer(kname)] += end - start
@@ -339,11 +472,30 @@ def profile_scene(name, sc, cfg, frames, warmup=5):
             cur_end = max(cur_end, end)
     busy += cur_end - cur_start
     window = spans[-1][1] - spans[0][0]
-    per_frame = {k: v / frames / 1e3 for k, v in layers.items()}
-    print(f"profile {name}: device window {window / frames / 1e3:.4f} ms/frame, "
+    n = frames * per_call
+    per_frame = {k: v / n / 1e3 for k, v in layers.items() if v or k == "other"}
+    print(f"profile {name}: device window {window / n / 1e3:.4f} ms/frame, "
           + ", ".join(f"{k} {v:.4f} ms/frame" for k, v in per_frame.items())
-          + f", {len(spans) / frames:.1f} device activities/frame, "
+          + f", {len(spans) / n:.1f} device activities/frame, "
           f"device idle share {1 - busy / window:.4f}")
+
+
+def bound(h, w, size_d, kernel):
+    """(ms, what bounds it): the least time the card could take for one
+    launch on (h, w) frames at ``size_d`` disparities, the larger of the
+    bytes moved (inputs read once, outputs written once) over the memory
+    rate and the float operations over the float32 rate."""
+    n = h * w
+    if kernel == "K2":
+        nbytes, ops = K2_BYTES_PER_PIXEL * n, 0
+    elif kernel in ("K1", "K3"):
+        nbytes = n * (2 + 2 * 4)       # two uint8 images in, best and dmap out
+        ops = n * (OPS_PER_SLICE * size_d + OPS_PER_PIXEL)
+    else:                                # K4, K5: both views
+        nbytes = n * (2 + 4 * 4)
+        ops = n * ((2 * OPS_PER_SLICE - RAW_COST_OPS) * size_d + 2 * OPS_PER_PIXEL)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def main() -> int:
@@ -369,64 +521,111 @@ def main() -> int:
     sizes = {"288x384": (288, 384), "1992x3008": (1992, 3008)}
     scenes16 = {name: make_scene(*hw, ndisp=16) for name, hw in sizes.items()}
     scenes8 = {name: make_scene(*hw, ndisp=8) for name, hw in sizes.items()}
+    wide = {"288x384 D=64": (make_scene(288, 384, ndisp=64), CFG64),
+            "1988x2948 D=128": (make_scene(1988, 2948, ndisp=128), CFG128)}
+    batch_scenes = [make_scene(288, 384, ndisp=16, seed=s) for s in range(1, 9)]
 
-    def grays(sc):
-        return tuple(rgb_to_grayscale(torch.from_numpy(sc[k]).to(DEV), DEFAULT_CONFIG)
+    def grays(sc, cfg=DEFAULT_CONFIG):
+        return tuple(rgb_to_grayscale(torch.from_numpy(sc[k]).to(DEV), cfg)
                      for k in ("left", "right"))
 
-    grays16 = {name: grays(sc) for name, sc in scenes16.items()}
-    k1_err, k1_maps = check_k1(grays16)
+    single_grays = {f"{name} D=16": (DEFAULT_CONFIG, grays(sc)) for name, sc in scenes16.items()}
+    single_grays.update({name: (cfg, grays(sc, cfg)) for name, (sc, cfg) in wide.items()})
+    single_err, single_maps = check_single(single_grays)
     dual_grays = {}
     for name in sizes:
-        dual_grays[f"{name} D=16"] = (DEFAULT_CONFIG, grays16[name])
+        dual_grays[f"{name} D=16"] = single_grays[f"{name} D=16"]
         dual_grays[f"{name} D=8"] = (CFG8, grays(scenes8[name]))
     k4_err, k4_maps = check_dual("K4", dual_grays)
     k5_err, k5_maps = check_dual("K5", dual_grays)
-    k2_err = check_k2([(DEFAULT_CONFIG, dl, dr) for dl, dr in k1_maps.values()]
-                      + k4_maps + k5_maps)
+    k2_err = check_k2(single_maps["K3"] + single_maps["K1"] + k4_maps + k5_maps)
+    del single_grays, dual_grays, single_maps, k4_maps, k5_maps
 
-    default_runs = [(name, scenes16[name], DEFAULT_CONFIG, launches(k1=2, k2=1))
-                    for name in sizes]
-    default_outs, default_counts = drive_path("default path", default_runs)
+    path_counts = [
+        drive_frames("default path", [(name, scenes16[name], DEFAULT_CONFIG,
+                                       launches(k3=2, k2=1)) for name in sizes]),
+        drive_frames("stream path", [(f"{name} stream=True", scenes16[name], STREAM16,
+                                      launches(k1=2, k2=1)) for name in sizes]),
+        drive_frames("wide-range path", [(f"{name} auto", sc, cfg, launches(k3=2, k2=1))
+                                         for name, (sc, cfg) in wide.items()])]
     dual_runs = []
     for name in sizes:
         # K4 below 200,000 px, K5 from there on (pipeline.use_stream)
         expect = launches(k2=1, k4=1) if name == "288x384" else launches(k2=1, k5=1)
         dual_runs += [(f"{name} D=16 dual_view=True", scenes16[name], DUAL16, expect),
                       (f"{name} D=8 auto", scenes8[name], CFG8, expect)]
-    dual_outs, dual_counts = drive_path("dual-view path", dual_runs)
-    for (name, sc, cfg, _), out in zip(default_runs + dual_runs, default_outs + dual_outs):
-        check_outputs(name, sc, out, cfg)
+    path_counts.append(drive_frames("dual-view path", dual_runs))
+    batch = tuple(torch.from_numpy(np.stack([sc[k] for sc in batch_scenes])).to(DEV)
+                  for k in ("left", "right"))
+    (batch_out,), batch_counts = drive_path("batch path", [(
+        f"stereo_pipeline_batch B={len(batch_scenes)} 288x384",
+        lambda: stereo_pipeline_batch(*batch, DEFAULT_CONFIG), launches(k3=2, k2=1))])
+    check_batch(batch_scenes, batch_out)
+    del batch_out
+    box_matcher = BoxStereoMatcher(DEFAULT_CONFIG, device=DEV)
+    sc_small = scenes16["288x384"]
+    (box_out,), box_counts = drive_path("box path", [(
+        "BoxStereoMatcher 288x384", lambda: box_matcher.compute(sc_small["left"], sc_small["right"]),
+        launches(k2=1))])
+    check_box(sc_small, box_out)
+    path_counts += [batch_counts, box_counts]
 
     times = {name: time_scene(name, scenes16[name], scenes8[name], iters)
              for name, iters in zip(sizes, (50, 10))}
+    wide_times = {name: time_wide(name, sc, cfg, iters)
+                  for (name, (sc, cfg)), iters in zip(wide.items(), (20, 3))}
+    extra = time_batch_and_box(batch, sc_small, times["288x384"]["frame_ms"], 20)
     for name, frames in zip(sizes, (50, 10)):
-        profile_scene(f"{name} default", scenes16[name], DEFAULT_CONFIG, frames)
-        profile_scene(f"{name} D=16 dual_view=True", scenes16[name], DUAL16, frames)
-        profile_scene(f"{name} D=8 auto", scenes8[name], CFG8, frames)
+        sc = scenes16[name]
+        left, right = on_card(sc)
+        left8, right8 = on_card(scenes8[name])
+        for label, cfg in (("default", DEFAULT_CONFIG), ("stream=True", STREAM16),
+                           ("D=16 dual_view=True", DUAL16)):
+            profile_path(f"{name} {label}", lambda: stereo_pipeline(left, right, cfg), frames)
+        profile_path(f"{name} D=8 auto", lambda: stereo_pipeline(left8, right8, CFG8), frames)
+    for (name, (sc, cfg)), frames in zip(wide.items(), (20, 3)):
+        left, right = on_card(sc)
+        profile_path(f"{name} auto", lambda: stereo_pipeline(left, right, cfg), frames,
+                     warmup=2)
+    profile_path(f"288x384 stereo_pipeline_batch B={len(batch_scenes)}",
+                 lambda: stereo_pipeline_batch(*batch, DEFAULT_CONFIG), 10,
+                 per_call=len(batch_scenes))
+    left, right = on_card(sc_small)
+    profile_path("288x384 box", lambda: box_stereo_pipeline(left, right, DEFAULT_CONFIG), 20)
+
+    shapes = {"288x384": (288, 384, 16), "1992x3008": (1992, 3008, 16),
+              "288x384 D=64": (288, 384, 64), "1988x2948 D=128": (1988, 2948, 128)}
+    for kernel in ("K1", "K2", "K3", "K4", "K5"):
+        for name, (h, w, d) in shapes.items():
+            if kernel in ("K1", "K3") or "D=" not in name:
+                ms, by = bound(h, w, d, kernel)
+                print(f"bound {kernel} {name}: {ms:.5f} ms ({by})")
+
     big = times["1992x3008"]
+    total = {k: sum(c[k] for c in path_counts) for k in COUNT_NAMES}
     pallas = "stereo_matching_cuda_tpu/ops/"
     csrc = "stereo_matching_cuda_tpu_torch/csrc/"
-    record = {"kernels": [
-        {"name": "guided_wta (K1)", "route": "cuda", "source": csrc + "guided_wta.cu",
-         "replaces": pallas + "pallas_guided.py:848",
-         "launches": default_counts["K1"], "max_abs_err": k1_err,
-         "ms": big["k1_ms"], "plain_ms": big["k1_plain_ms"]},
-        {"name": "lr_fill (K2)", "route": "cuda", "source": csrc + "lr_fill.cu",
-         "replaces": pallas + "pallas_post.py:69",
-         "launches": default_counts["K2"] + dual_counts["K2"], "max_abs_err": k2_err,
-         "ms": big["k2_ms"], "plain_ms": big["k2_plain_ms"]},
-        {"name": "guided_wta_dual (K4)", "route": "cuda",
-         "source": csrc + "guided_wta_dual.cu",
-         "replaces": pallas + "pallas_guided.py:1322",
-         "launches": dual_counts["K4"], "max_abs_err": k4_err,
-         "ms": big["k4_ms"], "plain_ms": big["dual_plain_ms"]},
-        {"name": "guided_wta_dual_stream (K5)", "route": "cuda",
-         "source": csrc + "guided_wta_dual_stream.cu",
-         "replaces": pallas + "pallas_guided.py:1116",
-         "launches": dual_counts["K5"], "max_abs_err": k5_err,
-         "ms": big["k5_ms"], "plain_ms": big["dual_plain_ms"]},
-    ]}
+    rows = [("guided_wta_stream (K1)", "K1", "guided_wta_stream.cu", "pallas_guided.py:848",
+             single_err["K1"], "k1_ms", "single_plain_ms"),
+            ("lr_fill (K2)", "K2", "lr_fill.cu", "pallas_post.py:69", k2_err, "k2_ms",
+             "k2_plain_ms"),
+            ("guided_wta (K3)", "K3", "guided_wta.cu", "pallas_guided.py:315",
+             single_err["K3"], "k3_ms", "single_plain_ms"),
+            ("guided_wta_dual (K4)", "K4", "guided_wta_dual.cu", "pallas_guided.py:1322",
+             k4_err, "k4_ms", "dual_plain_ms"),
+            ("guided_wta_dual_stream (K5)", "K5", "guided_wta_dual_stream.cu",
+             "pallas_guided.py:1116", k5_err, "k5_ms", "dual_plain_ms")]
+    record = {"kernels": []}
+    for name, kernel, src, replaces, err, ms_key, plain_key in rows:
+        bound_ms, bound_by = bound(1992, 3008, DEFAULT_CONFIG.size_d, kernel)
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": csrc + src,
+            "replaces": pallas + replaces, "launches": total[kernel], "max_abs_err": err,
+            "ms": big[ms_key], "plain_ms": big[plain_key], "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # no single PyTorch call computes the guided WTA or the LR check + fill
+            "library_ms": None})
+    print(f"wide-range timings {json.dumps(wide_times)}; batch and box {json.dumps(extra)}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

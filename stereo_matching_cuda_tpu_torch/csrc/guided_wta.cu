@@ -1,8 +1,9 @@
-// K1: fused matching cost + guided-filter aggregation + streaming WTA,
-// one view, on Hopper (sm_90a).
+// K3: fused matching cost + guided-filter aggregation + streaming WTA,
+// one view, in tiles, on Hopper (sm_90a).
 //
-// Replaces: stereo_matching_cuda_tpu/ops/pallas_guided.py::_make_stream_kernel
-//   (launched by _stream_tiles), the TPU kernel of the default frame.
+// Replaces: stereo_matching_cuda_tpu/ops/pallas_guided.py::_make_kernel
+//   (launched by _fused_tiles), the single view's tiled kernel, where each
+//   (strip, tile) recomputes its y-halo.
 // Checked against: stereo_matching_cuda_tpu_torch/ops/fused_guided.py::
 //   guided_wta_fused_reference (cost_volume followed by guided_filter_wta),
 //   at the fused fast-path bound (near-tie label flips only).
@@ -13,11 +14,12 @@
 //   mean_I, c = 1/(var + eps) (double), mean_p, mean_Ip over the clamped
 //   (2R+1)^2 window; a, b zeroed outside the image; q = mean_a*I + mean_b;
 //   if (best >= q) {best = q; dmap = d}   (ascending d: largest d wins ties)
+// A (N, H, W) batch rides blockIdx.z (the TPU kernel's batched grid mode);
+// the tile height does not depend on N, so each frame of a batch is
+// computed as a lone launch computes it, bit for bit.
 //
-// Design.  The TPU kernel walks each column strip top to bottom, carrying
-// 2R rows of window sums between sequential grid steps.  CUDA blocks run
-// unordered on 132 SMs, so nothing is carried: one CTA owns a 32 x TH
-// output tile and recomputes its 2R halo.  The CTA loads both uint8 input
+// Design.  One CTA owns a 32 x TH output tile and recomputes its 2R halo,
+// as the TPU kernel's tiles do.  The CTA loads both uint8 input
 // windows into shared memory once (the match window widened by the D-1
 // slice reach), computes the guide statistics over tile+R, then loops over
 // the slices in ascending order.  Each slice builds the cost over tile+2R
@@ -36,8 +38,8 @@
 // bytes of input per pixel: it is bound by shared-memory traffic and
 // issue, not by device memory.  The tile keeps every intermediate in
 // shared memory (row pitches odd, so a warp walking rows hits 32 banks);
-// a taller tile lowers the halo ratio.  Streaming rows through a CTA (no
-// y halo) is later work.
+// a taller tile lowers the halo ratio.  K1 (guided_wta_stream.cu) walks
+// rows down a band instead and pays the y halo once per band.
 
 #include "guided_common.cuh"
 
@@ -101,6 +103,11 @@ guided_wta_kernel(const uint8_t* __restrict__ gray1,
 
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kTileW + tx;
+  const size_t frame = (size_t)blockIdx.z * H * W;
+  gray1 += frame;
+  gray2 += frame;
+  best_out += frame;
+  dmap_out += frame;
   const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * TH;
   const int ye = y0 - P, xe = x0 - P;        // global origin of the E region
   const int ym = y0 - R, xm = x0 - R;        // global origin of the M region
@@ -253,12 +260,12 @@ guided_wta_kernel(const uint8_t* __restrict__ gray1,
 
 template <int TH>
 cudaError_t launch(const uint8_t* gray1, const uint8_t* gray2, float* best,
-                   float* dmap, const Params& p, cudaStream_t stream) {
+                   float* dmap, int N, const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.R, TH, p.D);
   cudaError_t err = cudaFuncSetAttribute(
       guided_wta_kernel<TH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.W + kTileW - 1) / kTileW, (p.H + TH - 1) / TH);
+  const dim3 grid((p.W + kTileW - 1) / kTileW, (p.H + TH - 1) / TH, N);
   guided_wta_kernel<TH><<<grid, dim3(kTileW, kBlockY), smem, stream>>>(
       gray1, gray2, best, dmap, p);
   return cudaGetLastError();
@@ -272,11 +279,11 @@ extern "C" long long guided_wta_smem_bytes(int R, int TH, int D) {
   return (long long)smem_bytes(R, TH, D);
 }
 
-// Launches K1 on `stream`.  gray1/gray2: uint8 (H, W) contiguous;
-// best/dmap: float32 (H, W).  TH must be 8, 16 or 32.  Returns the CUDA
+// Launches K3 on `stream`.  gray1/gray2: uint8 (N, H, W) contiguous;
+// best/dmap: float32 (N, H, W).  TH must be 8, 16 or 32.  Returns the CUDA
 // error of the launch (0 on success).
 extern "C" int guided_wta_launch(const void* gray1, const void* gray2,
-                                 void* best, void* dmap, int H, int W,
+                                 void* best, void* dmap, int N, int H, int W,
                                  int dmin, int D, int R, int TH,
                                  float one_m_alpha, float alpha,
                                  float th_color, float th_grad, float oob,
@@ -289,9 +296,9 @@ extern "C" int guided_wta_launch(const void* gray1, const void* gray2,
   auto* m = static_cast<float*>(dmap);
   auto st = static_cast<cudaStream_t>(stream);
   switch (TH) {
-    case 32: return (int)launch<32>(g1, g2, b, m, p, st);
-    case 16: return (int)launch<16>(g1, g2, b, m, p, st);
-    case 8: return (int)launch<8>(g1, g2, b, m, p, st);
+    case 32: return (int)launch<32>(g1, g2, b, m, N, p, st);
+    case 16: return (int)launch<16>(g1, g2, b, m, N, p, st);
+    case 8: return (int)launch<8>(g1, g2, b, m, N, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,9 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
-  K1 guided_wta.cu              one view, tiled (guided_wta)
+  K1 guided_wta_stream.cu       one view, row walk down a band
+                                (guided_wta_stream)
   K2 lr_fill.cu                 LR check + occlusion fill (lr_fill)
+  K3 guided_wta.cu              one view, tiled (guided_wta)
   K4 guided_wta_dual.cu         both views in one pass, tiled (guided_wta_dual)
   K5 guided_wta_dual_stream.cu  both views, row walk down a band
                                 (guided_wta_dual_stream)
@@ -40,17 +42,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_DUAL_ARGS = [_I] * 7 + [_F] * 5 + [ctypes.c_double, _P]
+# N, H, W, dmin, D, R, tile or band rows; the cost constants; eps; stream.
+_LAUNCH_ARGS = [_I] * 7 + [_F] * 5 + [ctypes.c_double, _P]
 _SIGNATURES = {
-    "guided_wta_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _F, _F, _F, _F, _F, ctypes.c_double, _P]),
+    "guided_wta_launch": (_I, [_P] * 4 + _LAUNCH_ARGS),
     "guided_wta_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
+    "guided_wta_stream_launch": (_I, [_P] * 4 + [_I] * 8 + [_F] * 5
+                                 + [ctypes.c_double, _P]),
+    "guided_wta_stream_smem_bytes": (ctypes.c_longlong, [_I] * 4),
     "lr_fill_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "lr_fill_smem_bytes": (ctypes.c_longlong, [_I]),
-    "guided_wta_dual_launch": (_I, [_P] * 7 + _DUAL_ARGS),
+    "guided_wta_dual_launch": (_I, [_P] * 7 + _LAUNCH_ARGS),
     "guided_wta_dual_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     "guided_wta_dual_scratch_bytes": (ctypes.c_longlong, [_I] * 5),
-    "guided_wta_dual_stream_launch": (_I, [_P] * 7 + _DUAL_ARGS),
+    "guided_wta_dual_stream_launch": (_I, [_P] * 7 + _LAUNCH_ARGS),
     "guided_wta_dual_stream_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     "guided_wta_dual_stream_scratch_bytes": (ctypes.c_longlong, [_I] * 5),
 }
@@ -124,8 +129,9 @@ _SMEM_LIMIT = 232_448
 
 
 def guided_wta_tile_rows(radius: int, size_d: int) -> int:
-    """K1's output tile height: the tallest of 32, 16, 8 whose shared
-    memory fits one block (a taller tile recomputes less halo)."""
+    """K3's output tile height: the tallest of 32, 16, 8 whose shared
+    memory fits one block (a taller tile recomputes less halo).  The
+    batch size does not enter (see ``_pick_rows``)."""
     lib = build()["lib"]
     for th in (32, 16, 8):
         if lib.guided_wta_smem_bytes(radius, th, size_d) <= _SMEM_LIMIT:
@@ -136,13 +142,14 @@ def guided_wta_tile_rows(radius: int, size_d: int) -> int:
 
 def guided_wta(gray1, gray2, best, dmap, dmin, size_d, radius, constants,
                eps) -> None:
-    """Launch K1 (csrc/guided_wta.cu) on the current stream."""
+    """Launch K3 (csrc/guided_wta.cu) on the current stream.
+    gray1/gray2: uint8 (N, H, W); best/dmap: float32 (N, H, W)."""
     lib = build()["lib"]
-    h, w = gray1.shape
+    n, h, w = gray1.shape
     th = guided_wta_tile_rows(radius, size_d)
     err = lib.guided_wta_launch(
         gray1.data_ptr(), gray2.data_ptr(), best.data_ptr(), dmap.data_ptr(),
-        h, w, dmin, size_d, radius, th, *constants, float(eps),
+        n, h, w, dmin, size_d, radius, th, *constants, float(eps),
         _stream(gray1))
     _check(err, "guided_wta_launch")
 
@@ -165,19 +172,19 @@ _K5_CTAS_PER_SM = 3
 
 
 def _pick_rows(smem_by_rows: dict, per_sm: int, h: int, w: int,
-               n_sm: int) -> int | None:
+               n_sm: int, tile_w: int = 32) -> int | None:
     """Of {rows: shared-memory bytes}, tallest first: among the heights
     that fit the most CTAs on one SM (counting up to ``per_sm``), the
-    tallest that still gives a (h, w) frame as many CTAs (ceil(w/32) x
-    ceil(h/rows)) as the card has SMs, else the lowest.  None if none
-    fits one block.  The batch size does not enter, so a batch computes
-    each frame as a lone call does, bit for bit."""
+    tallest that still gives a (h, w) frame as many CTAs
+    (ceil(w/tile_w) x ceil(h/rows)) as the card has SMs, else the lowest.
+    None if none fits one block.  The batch size does not enter, so a
+    batch computes each frame as a lone call does, bit for bit."""
     occ = {r: min(per_sm, _SMEM_PER_SM // (b + _SMEM_RESERVED_PER_BLOCK))
            for r, b in smem_by_rows.items() if b <= _SMEM_LIMIT}
     if not occ:
         return None
     rows = [r for r in occ if occ[r] == max(occ.values())]
-    strips = -(-w // 32)
+    strips = -(-w // tile_w)
     return next((r for r in rows if strips * -(-h // r) >= n_sm), rows[-1])
 
 
@@ -199,9 +206,46 @@ def guided_wta_dual_tile_rows(radius: int, reach: int, h: int, w: int,
     return th
 
 
-# K5 band heights, tallest first (a taller band pays its 4R y-halo over
-# more output rows).
+# K1 and K5 band heights, tallest first (a taller band pays its 4R
+# y-halo over more output rows).
 _BANDS = tuple(range(128, 0, -8))
+
+# K1's tile width (32 or 64 output columns per CTA) and the CTAs per SM
+# its band is sized for: 64 columns at two CTAs per SM (band 48 at 6 MP)
+# measured fastest (PERF.md, Findings: the single-view row walk).
+_K1_TILE_W = 64
+_K1_CTAS_PER_SM = 2
+
+
+@functools.lru_cache(maxsize=None)
+def guided_wta_stream_band_rows(radius: int, size_d: int, h: int, w: int,
+                                n_sm: int, tile_w: int = _K1_TILE_W) -> int:
+    """K1's band height, of 128, 120, .., 8 (``_pick_rows``)."""
+    lib = build()["lib"]
+    band = _pick_rows({b: lib.guided_wta_stream_smem_bytes(tile_w, radius, b, size_d)
+                       for b in _BANDS}, _K1_CTAS_PER_SM, h, w, n_sm, tile_w)
+    if band is None:
+        raise ValueError(f"radius {radius} with {size_d} disparities needs more "
+                         "shared memory than one block has (row-walk kernel)")
+    return band
+
+
+def guided_wta_stream(gray1, gray2, best, dmap, dmin, size_d, radius,
+                      constants, eps, band=None, tile_w=_K1_TILE_W) -> None:
+    """Launch K1 (csrc/guided_wta_stream.cu) on the current stream;
+    arguments as guided_wta.  ``band`` (output rows per CTA) defaults to
+    ``guided_wta_stream_band_rows``; ``band`` and ``tile_w`` are set only
+    to measure other shapes of the kernel."""
+    lib = build()["lib"]
+    n, h, w = gray1.shape
+    if band is None:
+        band = guided_wta_stream_band_rows(radius, size_d, h, w,
+                                           _n_sm(gray1.device), tile_w)
+    err = lib.guided_wta_stream_launch(
+        gray1.data_ptr(), gray2.data_ptr(), best.data_ptr(), dmap.data_ptr(),
+        n, h, w, dmin, size_d, radius, tile_w, band, *constants, float(eps),
+        _stream(gray1))
+    _check(err, "guided_wta_stream_launch")
 
 
 @functools.lru_cache(maxsize=None)
@@ -267,9 +311,12 @@ def guided_wta_dual_stream(gray_l, gray_r, outs, dmin, size_d, radius,
 
 def lr_fill(dl, dr, occ, filled, dmin, size_d, d_lr, d_occlusion,
             v_min) -> None:
-    """Launch K2 (csrc/lr_fill.cu) on the current stream."""
+    """Launch K2 (csrc/lr_fill.cu) on the current stream.  dl/dr/occ/filled:
+    float32 (..., W), contiguous; every row is independent, so a (N, H, W)
+    batch is N*H rows of one launch, bit-identical to per-frame launches."""
     lib = build()["lib"]
-    h, w = dl.shape
+    w = dl.shape[-1]
+    h = dl.numel() // w
     if lib.lr_fill_smem_bytes(w) > _SMEM_LIMIT:
         raise ValueError(f"row width {w} exceeds the post kernel's shared memory")
     err = lib.lr_fill_launch(

@@ -82,6 +82,7 @@ def test_import_never_loads_jax():
     code = (
         "import pkgutil, importlib, sys\n"
         "import stereo_matching_cuda_tpu_torch as p\n"
+        "import stereo_matching_cuda_tpu_torch.models\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
@@ -97,7 +98,7 @@ def test_import_never_loads_jax():
 
 
 def _reset():
-    guided_wta_fused.launches = 0
+    guided_wta_fused.k1_launches = guided_wta_fused.k3_launches = 0
     lr_fill_fused.launches = 0
 
 
@@ -113,7 +114,8 @@ def test_forcing_a_kernel_on_cpu_raises(kw):
     left, right = _rgb()
     with pytest.raises(ValueError, match="CUDA"):
         stereo_pipeline(left, right, dataclasses.replace(DEFAULT_CONFIG, **kw))
-    assert (guided_wta_fused.launches, lr_fill_fused.launches) == (0, 0)
+    assert (guided_wta_fused.k1_launches, guided_wta_fused.k3_launches,
+            lr_fill_fused.launches) == (0, 0, 0)
 
 
 def test_cpu_runs_plain_path_and_counts_no_launch():
@@ -125,7 +127,8 @@ def test_cpu_runs_plain_path_and_counts_no_launch():
     g = left[..., 0].contiguous()
     guided_wta_fused(g, g, DEFAULT_CONFIG.d_min, DEFAULT_CONFIG)
     lr_fill_fused(out["disparity_left"], out["disparity_right"], DEFAULT_CONFIG)
-    assert (guided_wta_fused.launches, lr_fill_fused.launches) == (0, 0)
+    assert (guided_wta_fused.k1_launches, guided_wta_fused.k3_launches,
+            lr_fill_fused.launches) == (0, 0, 0)
 
 
 def test_routing_rule():

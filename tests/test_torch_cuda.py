@@ -1,6 +1,7 @@
-"""Kernels K1, K2, K4 and K5 on a CUDA GPU against their plain versions
-on the same card, and the launch counts of the kernel routes.  Skipped
-without a GPU; on a machine with one (and no JAX):
+"""Kernels K1-K5 on a CUDA GPU against their plain versions on the same
+card, their batches against per-frame launches, and the launch counts of
+the kernel routes.  Skipped without a GPU; on a machine with one (and no
+JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -11,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from stereo_matching_cuda_tpu_torch import DEFAULT_CONFIG, StereoConfig, compute_disparity
+from stereo_matching_cuda_tpu_torch import (
+    DEFAULT_CONFIG, BoxStereoMatcher, StereoConfig, compute_disparity,
+    stereo_pipeline, stereo_pipeline_batch)
 from stereo_matching_cuda_tpu_torch.ops.fused_guided import (
     guided_wta_fused, guided_wta_fused_dual, guided_wta_fused_dual_reference,
     guided_wta_fused_reference)
@@ -37,24 +40,32 @@ def _pair(h, w, seed, dev):
             torch.from_numpy(np.ascontiguousarray(base[:, 10:10 + w])).to(dev))
 
 
+@pytest.mark.parametrize("stream", [False, True], ids=["K3", "K1"])
 @pytest.mark.parametrize("h,w,d_min,d_max,dmin", [
     (64, 96, -15, 0, -15), (64, 96, -15, 0, 0), (33, 130, -15, 0, -15),
-    (8, 40, -15, 0, -15), (48, 160, -63, 0, -63), (40, 70, -8, 8, -8)])
-def test_k1_matches_plain(dev, h, w, d_min, d_max, dmin):
-    """The fused fast-path bound (tests/test_pallas_fused.py:55-57)."""
-    cfg = StereoConfig(d_min=d_min, d_max=d_max)
+    (8, 40, -15, 0, -15), (48, 160, -63, 0, -63), (40, 70, -8, 8, -8),
+    (40, 200, -127, 0, -127)])
+def test_k1_matches_plain(dev, stream, h, w, d_min, d_max, dmin):
+    """The fused fast-path bound (tests/test_pallas_fused.py:55-57); the
+    stream flag picks the kernel."""
+    cfg = StereoConfig(d_min=d_min, d_max=d_max, stream=stream)
     g1, g2 = _pair(h, w, h + w, dev)
+    guided_wta_fused.k1_launches = guided_wta_fused.k3_launches = 0
     best, dmap = guided_wta_fused(g1, g2, dmin, cfg)
+    assert (guided_wta_fused.k1_launches,
+            guided_wta_fused.k3_launches) == ((1, 0) if stream else (0, 1))
     best_p, dmap_p = guided_wta_fused_reference(g1, g2, dmin, cfg)
     mism = int((dmap != dmap_p).sum())
     assert mism <= max(4, 2e-3 * h * w), mism
     torch.testing.assert_close(best, best_p, atol=2e-3, rtol=1e-4)
 
 
+@pytest.mark.parametrize("stream", [False, True], ids=["K3", "K1"])
 @pytest.mark.parametrize("radius", [1, 4, 14, 20, 23])
-def test_k1_other_radii(dev, radius):
-    """Radii 20 and 23 take the 16- and 8-row tiles (shared memory)."""
-    cfg = dataclasses.replace(DEFAULT_CONFIG, radius=radius)
+def test_k1_other_radii(dev, stream, radius):
+    """Radii 20 and 23 take K3's 16- and 8-row tiles and K1's lower bands
+    (shared memory)."""
+    cfg = dataclasses.replace(DEFAULT_CONFIG, radius=radius, stream=stream)
     g1, g2 = _pair(70, 100, radius, dev)
     best, dmap = guided_wta_fused(g1, g2, cfg.d_min, cfg)
     best_p, dmap_p = guided_wta_fused_reference(g1, g2, cfg.d_min, cfg)
@@ -74,11 +85,68 @@ def test_k2_bit_identical(dev, d_min, h, w):
     assert torch.equal(occ, occ_p) and torch.equal(filled, filled_p)
 
 
+@pytest.mark.parametrize("stream", [False, True], ids=["K3", "K1"])
+def test_single_view_batch_equals_per_frame(dev, stream):
+    cfg = StereoConfig(stream=stream)
+    pairs = [_pair(50, 90, s, dev) for s in (1, 2, 3)]
+    outs = guided_wta_fused(torch.stack([p[0] for p in pairs]),
+                            torch.stack([p[1] for p in pairs]), cfg.d_min, cfg)
+    for i, (a, b) in enumerate(pairs):
+        for j, t in enumerate(guided_wta_fused(a, b, cfg.d_min, cfg)):
+            assert torch.equal(outs[j][i], t), (i, j)
+
+
+def test_k2_batch_equals_per_frame(dev):
+    cfg = DEFAULT_CONFIG
+    rng = np.random.default_rng(7)
+    dl = torch.from_numpy(rng.integers(-15, 1, (3, 20, 64)).astype(np.float32)).to(dev)
+    dr = torch.from_numpy(rng.integers(0, 16, (3, 20, 64)).astype(np.float32)).to(dev)
+    occ, filled = lr_fill_fused(dl, dr, cfg)
+    for i in range(3):
+        o, f = lr_fill_fused(dl[i], dr[i], cfg)
+        assert torch.equal(occ[i], o) and torch.equal(filled[i], f), i
+
+
+@pytest.mark.parametrize("kw", [{}, {"stream": True}, {"d_min": -7}])
+def test_pipeline_batch_equals_per_frame(dev, kw):
+    """One launch per kernel for the batch (K3 twice, K1 twice, or K4
+    once; K2 once), each frame bit-identical to a lone frame."""
+    cfg = dataclasses.replace(DEFAULT_CONFIG, **kw)
+    scenes = [make_scene(64, 96, ndisp=16, seed=s) for s in (1, 2, 3)]
+    left = torch.from_numpy(np.stack([sc["left"] for sc in scenes])).to(dev)
+    right = torch.from_numpy(np.stack([sc["right"] for sc in scenes])).to(dev)
+    guided_wta_fused.k1_launches = guided_wta_fused.k3_launches = 0
+    guided_wta_fused_dual.k4_launches = lr_fill_fused.launches = 0
+    out = stereo_pipeline_batch(left, right, cfg)
+    assert (guided_wta_fused.k1_launches + guided_wta_fused.k3_launches
+            + guided_wta_fused_dual.k4_launches, lr_fill_fused.launches) == (
+        (1 if kw.get("d_min") else 2), 1)
+    for i in range(3):
+        one = stereo_pipeline(left[i], right[i], cfg)
+        for k, v in one.items():
+            assert torch.equal(out[k][i], v), (i, k)
+
+
+def test_box_matcher_runs_only_k2(dev):
+    guided_wta_fused.k1_launches = guided_wta_fused.k3_launches = 0
+    guided_wta_fused_dual.k4_launches = guided_wta_fused_dual.k5_launches = 0
+    lr_fill_fused.launches = 0
+    sc = make_scene(64, 96, ndisp=16)
+    out = BoxStereoMatcher(DEFAULT_CONFIG, device=dev).compute(sc["left"], sc["right"])
+    plain = BoxStereoMatcher(dataclasses.replace(DEFAULT_CONFIG, post_fused=False),
+                             device=dev).compute(sc["left"], sc["right"])
+    assert (guided_wta_fused.k1_launches, guided_wta_fused.k3_launches,
+            guided_wta_fused_dual.k4_launches, guided_wta_fused_dual.k5_launches,
+            lr_fill_fused.launches) == (0, 0, 0, 0, 1)
+    for k, v in plain.items():
+        np.testing.assert_array_equal(out[k], v, err_msg=k)
+
+
 def test_main_path_launches_each_kernel(dev):
-    guided_wta_fused.launches = lr_fill_fused.launches = 0
+    guided_wta_fused.k3_launches = lr_fill_fused.launches = 0
     sc = make_scene(96, 160, ndisp=16)
     out = compute_disparity(sc["left"], sc["right"], DEFAULT_CONFIG, dev)
-    assert (guided_wta_fused.launches, lr_fill_fused.launches) == (2, 1)
+    assert (guided_wta_fused.k3_launches, lr_fill_fused.launches) == (2, 1)
     assert np.isfinite(out["occlusion_filled"]).all()
 
 
@@ -116,12 +184,12 @@ def test_dual_batch_equals_per_frame(dev, stream):
     ({"dual_view": True, "stream": True}, (0, 0, 1, 1)),
     ({"d_min": -7, "dual_view": False}, (2, 0, 0, 1))])
 def test_dual_route_launch_counts(dev, kw, counts):
-    """(K1, K4, K5, K2) launches of one 96x160 frame."""
-    guided_wta_fused.launches = lr_fill_fused.launches = 0
+    """(K3, K4, K5, K2) launches of one 96x160 frame."""
+    guided_wta_fused.k3_launches = lr_fill_fused.launches = 0
     guided_wta_fused_dual.k4_launches = guided_wta_fused_dual.k5_launches = 0
     sc = make_scene(96, 160, ndisp=16)
     out = compute_disparity(sc["left"], sc["right"],
                             dataclasses.replace(DEFAULT_CONFIG, **kw), dev)
-    assert (guided_wta_fused.launches, guided_wta_fused_dual.k4_launches,
+    assert (guided_wta_fused.k3_launches, guided_wta_fused_dual.k4_launches,
             guided_wta_fused_dual.k5_launches, lr_fill_fused.launches) == counts
     assert np.isfinite(out["occlusion_filled"]).all()
