@@ -358,6 +358,16 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def k3_tile(h, w, cfg):
+    """K3's launch shape on one (h, w) frame: tile height, the grid's
+    CTAs, and the CTAs per SM that its shared memory allows."""
+    rows = _kernels.guided_wta_tile_rows(cfg.radius, cfg.size_d)
+    smem = _kernels.build()["lib"].guided_wta_smem_bytes(cfg.radius, rows, cfg.size_d)
+    per_sm = _kernels._SMEM_PER_SM // (smem + _kernels._SMEM_RESERVED_PER_BLOCK)
+    return (f"; k3 tile {rows} rows, {-(-w // 32) * -(-h // rows)} CTAs, "
+            f"{per_sm} CTAs/SM by shared memory")
+
+
 def on_card(sc):
     return (torch.from_numpy(sc["left"]).to(DEV), torch.from_numpy(sc["right"]).to(DEV))
 
@@ -392,7 +402,8 @@ def time_scene(name, sc, sc8, iters):
         "k2_ms": cuda_ms(lambda: lr_fill_fused(dl, dr, cfg), iters),
         "k2_plain_ms": cuda_ms(lambda: lr_fill_reference(dl, dr, cfg), iters),
     }
-    print(f"timing {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    print(f"timing {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+          + k3_tile(*gl.shape, cfg))
     return t
 
 
@@ -410,7 +421,8 @@ def time_wide(name, sc, cfg, iters):
         "single_plain_ms": cuda_ms(
             lambda: guided_wta_fused_reference(gl, gr, cfg.d_min, chunked(cfg)), 1, warmup=1),
     }
-    print(f"timing {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    print(f"timing {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+          + k3_tile(*gl.shape, cfg))
     return t
 
 

@@ -1,5 +1,6 @@
-// Device code shared by the guided-filter matching kernels: K1
-// (guided_wta.cu, one view) and the dual-view kernels K4
+// Device code shared by the guided-filter matching kernels: K3
+// (guided_wta.cu, one view, tiled), K1 (guided_wta_stream.cu, one view,
+// row walk) and the dual-view kernels K4
 // (guided_wta_dual.cu) and K5 (guided_wta_dual_stream.cu), which compute
 // the left and the right view's matching in one pass, from one raw cost
 // slice per disparity.
@@ -96,12 +97,13 @@ __device__ inline void window_sums(const float* __restrict__ src, int stride,
 
 // x-window sums of two planes: dst[r][c] = sum_j src[r][c + j] for
 // r < rows, c < cols.  Lanes walk rows (odd pitches: no bank conflicts).
-template <typename Acc>
+// NT: the block's thread count.
+template <typename Acc, int NT = kThreads>
 __device__ inline void x_sums(const float* a, const float* b, int src_pitch,
                               float* da, float* db, int dst_pitch,
                               int rows, int cols, int k, int tid) {
   const int nblk = (cols + kRB - 1) / kRB;
-  for (int t = tid; t < rows * nblk; t += kThreads) {
+  for (int t = tid; t < rows * nblk; t += NT) {
     const int r = t % rows, c0 = (t / rows) * kRB;
     const int nv = min(kRB, cols - c0);
     Acc s1[kRB], s2[kRB];

@@ -81,13 +81,18 @@ __host__ inline size_t smem_bytes(int R, int TH, int D) {
   return floats * sizeof(float) + bytes;
 }
 
-template <int TH>
-__global__ void __launch_bounds__(kThreads)
+// Block height of a TH-row tile: 16 (512 threads, two CTAs and 32 warps
+// per SM) where the tile has the rows, else 8.
+__host__ __device__ constexpr int block_rows(int TH) { return TH >= 16 ? 16 : 8; }
+
+template <int TH, int BY>
+__global__ void __launch_bounds__(kTileW * BY, 2)
 guided_wta_kernel(const uint8_t* __restrict__ gray1,
                   const uint8_t* __restrict__ gray2,
                   float* __restrict__ best_out,
                   float* __restrict__ dmap_out, Params p) {
-  constexpr int kRows = TH / kBlockY;   // output rows per thread
+  constexpr int NT = kTileW * BY;       // threads of the block
+  constexpr int kRows = TH / BY;        // output rows per thread
   extern __shared__ float smem[];
   const Geom g = geometry(p.R, TH, p.D);
   const int P = g.P, R = p.R, H = p.H, W = p.W;
@@ -114,7 +119,7 @@ guided_wta_kernel(const uint8_t* __restrict__ gray1,
 
   // Input windows, zero outside the image.  i1s column c holds global
   // column xe - 1 + c; i2s column c holds xe + dmin - 1 + c.
-  for (int r = ty; r < g.ER; r += kBlockY) {
+  for (int r = ty; r < g.ER; r += BY) {
     const int gy = ye + r;
     const bool row_in = gy >= 0 && gy < H;
     for (int c = tx; c < g.I1C; c += kTileW) {
@@ -130,18 +135,18 @@ guided_wta_kernel(const uint8_t* __restrict__ gray1,
 
   // Guide statistics over M: integer x-sums (exact in float), y-sums in
   // double, rounded once (see guide_stats).
-  for (int r = ty; r < g.ER; r += kBlockY)
+  for (int r = ty; r < g.ER; r += BY)
     for (int c = tx; c < g.EC; c += kTileW) {
       const float v = (float)i1s[r * g.I1C + c + 1];
       buf1a[r * g.PE + c] = v;
       buf1b[r * g.PE + c] = v * v;
     }
   __syncthreads();
-  x_sums<float>(buf1a, buf1b, g.PE, buf2a, buf2b, g.PM, g.ER, g.MC, k, tid);
+  x_sums<float, NT>(buf1a, buf1b, g.PE, buf2a, buf2b, g.PM, g.ER, g.MC, k, tid);
   __syncthreads();
   {
     const int nblk = (g.MR + kRB - 1) / kRB;
-    for (int t = tid; t < g.MC * nblk; t += kThreads) {
+    for (int t = tid; t < g.MC * nblk; t += NT) {
       const int c = t % g.MC, r0 = (t / g.MC) * kRB;
       const int nv = min(kRB, g.MR - r0);
       double s1[kRB], s2[kRB];
@@ -173,7 +178,7 @@ guided_wta_kernel(const uint8_t* __restrict__ gray1,
     const int d = p.dmin + s;
 
     // 1. cost and I*cost over E (zero outside the image).
-    for (int r = ty; r < g.ER; r += kBlockY) {
+    for (int r = ty; r < g.ER; r += BY) {
       const int gy = ye + r;
       for (int c = tx; c < g.EC; c += kTileW) {
         const int gx = xe + c;
@@ -193,13 +198,13 @@ guided_wta_kernel(const uint8_t* __restrict__ gray1,
     __syncthreads();
 
     // 2. x-window sums over (E rows) x (M columns).
-    x_sums<float>(buf1a, buf1b, g.PE, buf2a, buf2b, g.PM, g.ER, g.MC, k, tid);
+    x_sums<float, NT>(buf1a, buf1b, g.PE, buf2a, buf2b, g.PM, g.ER, g.MC, k, tid);
     __syncthreads();
 
     // 3. y-window sums -> mean_p, mean_Ip -> a, b over M (into buf1).
     {
       const int nblk = (g.MR + kRB - 1) / kRB;
-      for (int t = tid; t < g.MC * nblk; t += kThreads) {
+      for (int t = tid; t < g.MC * nblk; t += NT) {
         const int c = t % g.MC, r0 = (t / g.MC) * kRB;
         const int nv = min(kRB, g.MR - r0);
         float s1[kRB], s2[kRB];
@@ -221,7 +226,7 @@ guided_wta_kernel(const uint8_t* __restrict__ gray1,
     __syncthreads();
 
     // 4. x-window sums of a, b over (M rows) x (tile columns) (into buf2).
-    x_sums<float>(buf1a, buf1b, g.PM, buf2a, buf2b, kTileW + 1, g.MR, kTileW, k, tid);
+    x_sums<float, NT>(buf1a, buf1b, g.PM, buf2a, buf2b, kTileW + 1, g.MR, kTileW, k, tid);
     __syncthreads();
 
     // 5. y-window sums -> q -> streaming WTA in registers, rows yq ..
@@ -262,11 +267,12 @@ template <int TH>
 cudaError_t launch(const uint8_t* gray1, const uint8_t* gray2, float* best,
                    float* dmap, int N, const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.R, TH, p.D);
+  constexpr int BY = block_rows(TH);
   cudaError_t err = cudaFuncSetAttribute(
-      guided_wta_kernel<TH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      guided_wta_kernel<TH, BY>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.W + kTileW - 1) / kTileW, (p.H + TH - 1) / TH, N);
-  guided_wta_kernel<TH><<<grid, dim3(kTileW, kBlockY), smem, stream>>>(
+  guided_wta_kernel<TH, BY><<<grid, dim3(kTileW, BY), smem, stream>>>(
       gray1, gray2, best, dmap, p);
   return cudaGetLastError();
 }

@@ -72,13 +72,16 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def build() -> dict:
-    """Compile ``csrc/*.cu`` (once per hash of the sources and headers)
-    and load the library.
+def build(defines: tuple = ()) -> dict:
+    """Compile ``csrc/*.cu`` (once per hash of the sources, headers and
+    flags) and load the library.  ``defines``: extra nvcc flags, to build
+    and measure another setting of a kernel (``scripts/torch_k3_tiles.py``);
+    the wrappers use the default build.
     Returns {"lib": CDLL, "path": str, "seconds": build time (0 when the
     library was already built), "log": nvcc's output}."""
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = (*NVCC_FLAGS, *defines)
+    digest = hashlib.sha256(" ".join(flags).encode())
     for src in sources + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -90,7 +93,7 @@ def build() -> dict:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
-            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+            procs = [subprocess.Popen([nvcc, *flags, "-c", str(src), "-o", obj],
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True)
                      for src, obj in zip(sources, objs)]
@@ -128,16 +131,68 @@ def _stream(t: torch.Tensor) -> int:
 _SMEM_LIMIT = 232_448
 
 
+def dual_reach(dmin: int, size_d: int) -> int:
+    """Column reach of the dual kernels' shared raw slice:
+    max(0, d_max) + max(0, -d_min) (the JAX package's dual_geometry)."""
+    return max(0, dmin + size_d - 1) + max(0, -dmin)
+
+
+# Shared memory of one SM on sm_90, and what the system reserves of it
+# for each resident block (bytes).
+_SMEM_PER_SM = 233_472
+_SMEM_RESERVED_PER_BLOCK = 1_024
+
+# CTAs per SM each kernel's tile or band is sized for: occupancy first,
+# then height (PERF.md, Findings: the dual-view tile sweeps).  K3's 512-
+# thread block is built for two (``__launch_bounds__(512, 2)``: at most
+# 64 registers a thread), and so is its 256-thread block of 8-row tiles.
+_K3_CTAS_PER_SM = 2
+_K4_CTAS_PER_SM = 2
+_K5_CTAS_PER_SM = 3
+
+
+def _fullest_rows(smem_by_rows: dict, per_sm: int) -> list:
+    """Of {rows: shared-memory bytes}, in the table's order, the heights
+    that fit the most CTAs on one SM (counting up to ``per_sm``); empty if
+    none fits one block."""
+    occ = {r: min(per_sm, _SMEM_PER_SM // (b + _SMEM_RESERVED_PER_BLOCK))
+           for r, b in smem_by_rows.items() if b <= _SMEM_LIMIT}
+    return [r for r in occ if occ[r] == max(occ.values())]
+
+
+def _pick_rows(smem_by_rows: dict, per_sm: int, h: int, w: int,
+               n_sm: int, tile_w: int = 32) -> int | None:
+    """Of {rows: shared-memory bytes}, tallest first: among the heights
+    that fit the most CTAs on one SM (counting up to ``per_sm``), the
+    tallest that still gives a (h, w) frame as many CTAs
+    (ceil(w/tile_w) x ceil(h/rows)) as the card has SMs, else the lowest.
+    None if none fits one block.  The batch size does not enter, so a
+    batch computes each frame as a lone call does, bit for bit."""
+    rows = _fullest_rows(smem_by_rows, per_sm)
+    if not rows:
+        return None
+    strips = -(-w // tile_w)
+    return next((r for r in rows if strips * -(-h // r) >= n_sm), rows[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def guided_wta_tile_rows(radius: int, size_d: int) -> int:
-    """K3's output tile height: the tallest of 32, 16, 8 whose shared
-    memory fits one block (a taller tile recomputes less halo).  The
-    batch size does not enter (see ``_pick_rows``)."""
+    """K3's output tile height, of 32, 16 and 8: occupancy first (up to
+    ``_K3_CTAS_PER_SM``), then the tallest.  Neither the frame nor the
+    batch enters: with 16 warps a block, a 32-row tile's smaller halo
+    beat 16-row tiles that fill every SM (PERF.md, Findings, PR 5)."""
     lib = build()["lib"]
-    for th in (32, 16, 8):
-        if lib.guided_wta_smem_bytes(radius, th, size_d) <= _SMEM_LIMIT:
-            return th
-    raise ValueError(f"radius {radius} with {size_d} disparities needs more "
-                     "shared memory than one block has")
+    rows = _fullest_rows({th: lib.guided_wta_smem_bytes(radius, th, size_d)
+                          for th in (32, 16, 8)}, _K3_CTAS_PER_SM)
+    if not rows:
+        raise ValueError(f"radius {radius} with {size_d} disparities needs more "
+                         "shared memory than one block has")
+    return rows[0]
 
 
 def guided_wta(gray1, gray2, best, dmap, dmin, size_d, radius, constants,
@@ -152,45 +207,6 @@ def guided_wta(gray1, gray2, best, dmap, dmin, size_d, radius, constants,
         n, h, w, dmin, size_d, radius, th, *constants, float(eps),
         _stream(gray1))
     _check(err, "guided_wta_launch")
-
-
-def dual_reach(dmin: int, size_d: int) -> int:
-    """Column reach of the dual kernels' shared raw slice:
-    max(0, d_max) + max(0, -d_min) (the JAX package's dual_geometry)."""
-    return max(0, dmin + size_d - 1) + max(0, -dmin)
-
-
-# Shared memory of one SM on sm_90, and what the system reserves of it
-# for each resident block (bytes).
-_SMEM_PER_SM = 233_472
-_SMEM_RESERVED_PER_BLOCK = 1_024
-
-# CTAs per SM each dual kernel's tile or band is sized for: occupancy
-# first, then height (PERF.md, Findings: the dual-view tile sweeps).
-_K4_CTAS_PER_SM = 2
-_K5_CTAS_PER_SM = 3
-
-
-def _pick_rows(smem_by_rows: dict, per_sm: int, h: int, w: int,
-               n_sm: int, tile_w: int = 32) -> int | None:
-    """Of {rows: shared-memory bytes}, tallest first: among the heights
-    that fit the most CTAs on one SM (counting up to ``per_sm``), the
-    tallest that still gives a (h, w) frame as many CTAs
-    (ceil(w/tile_w) x ceil(h/rows)) as the card has SMs, else the lowest.
-    None if none fits one block.  The batch size does not enter, so a
-    batch computes each frame as a lone call does, bit for bit."""
-    occ = {r: min(per_sm, _SMEM_PER_SM // (b + _SMEM_RESERVED_PER_BLOCK))
-           for r, b in smem_by_rows.items() if b <= _SMEM_LIMIT}
-    if not occ:
-        return None
-    rows = [r for r in occ if occ[r] == max(occ.values())]
-    strips = -(-w // tile_w)
-    return next((r for r in rows if strips * -(-h // r) >= n_sm), rows[-1])
-
-
-@functools.lru_cache(maxsize=None)
-def _n_sm(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)

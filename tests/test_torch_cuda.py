@@ -193,3 +193,101 @@ def test_dual_route_launch_counts(dev, kw, counts):
     assert (guided_wta_fused.k3_launches, guided_wta_fused_dual.k4_launches,
             guided_wta_fused_dual.k5_launches, lr_fill_fused.launches) == counts
     assert np.isfinite(out["occlusion_filled"]).all()
+
+
+def _k3_at(g1, g2, dmin, cfg, th):
+    """K3 through its C entry at tile height ``th`` (block height 16 for
+    16 and 32 rows, 8 for 8): uint8 (H, W) x2 -> (best, dmap)."""
+    from stereo_matching_cuda_tpu_torch.ops import _kernels
+    from stereo_matching_cuda_tpu_torch.ops.cost import cost_constants
+
+    h, w = g1.shape
+    best = torch.empty((1, h, w), dtype=torch.float32, device=g1.device)
+    dmap = torch.empty_like(best)
+    err = _kernels.build()["lib"].guided_wta_launch(
+        g1.data_ptr(), g2.data_ptr(), best.data_ptr(), dmap.data_ptr(), 1, h, w,
+        dmin, cfg.size_d, cfg.radius, th, *cost_constants(cfg), float(cfg.eps),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return best[0], dmap[0]
+
+
+def _k3_tiles(cfg):
+    """The tile heights whose shared memory fits one block."""
+    from stereo_matching_cuda_tpu_torch.ops import _kernels
+
+    lib = _kernels.build()["lib"]
+    return [th for th in (32, 16, 8)
+            if lib.guided_wta_smem_bytes(cfg.radius, th, cfg.size_d) <= _kernels._SMEM_LIMIT]
+
+
+def _assert_k3_bound(g1, g2, dmin, cfg, tiles):
+    best_p, dmap_p = guided_wta_fused_reference(g1, g2, dmin, cfg)
+    for th in tiles:
+        best, dmap = _k3_at(g1, g2, dmin, cfg, th)
+        mism = int((dmap != dmap_p).sum())
+        assert mism <= max(4, 2e-3 * dmap.numel()), (th, mism)
+        torch.testing.assert_close(best, best_p, atol=2e-3, rtol=1e-4, msg=f"tile {th}")
+
+
+@pytest.mark.parametrize("h,w", [(1, 40), (17, 31), (33, 33), (64, 65), (40, 97)])
+def test_k3_tile_edges(dev, h, w):
+    """Frames that straddle the tile (32 columns; 32, 16, 8 rows) and the
+    window runs, at every tile height."""
+    g1, g2 = _pair(h, w, h * w, dev)
+    _assert_k3_bound(g1, g2, DEFAULT_CONFIG.d_min, DEFAULT_CONFIG, (32, 16, 8))
+
+
+@pytest.mark.parametrize("dmin", [0, -5])
+def test_k3_one_disparity(dev, dmin):
+    cfg = StereoConfig(d_min=dmin, d_max=dmin)
+    g1, g2 = _pair(40, 97, 11, dev)
+    _assert_k3_bound(g1, g2, dmin, cfg, (32, 16, 8))
+    best, dmap = guided_wta_fused(g1, g2, dmin, cfg)
+    assert bool((dmap == dmin).all())
+
+
+@pytest.mark.parametrize("radius", [1, 23])
+def test_k3_radius_extremes(dev, radius):
+    """R=1 at every tile height; R=23 fits only the 8-row tile (256
+    threads), which the wrapper then picks."""
+    from stereo_matching_cuda_tpu_torch.ops import _kernels
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, radius=radius)
+    tiles = _k3_tiles(cfg)
+    assert tiles == ([32, 16, 8] if radius == 1 else [8]), tiles
+    g1, g2 = _pair(70, 100, radius, dev)
+    _assert_k3_bound(g1, g2, cfg.d_min, cfg, tiles)
+    if radius == 23:
+        assert _kernels.guided_wta_tile_rows(23, cfg.size_d) == 8
+
+
+def test_k3_batch_equals_per_frame_on_16_row_tiles(dev):
+    """At R=20 only 16 and 8 rows fit, one CTA per SM each: the wrapper
+    takes 16 (512-thread blocks), and a B=3 batch equals per-frame
+    launches bit for bit."""
+    from stereo_matching_cuda_tpu_torch.ops import _kernels
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, radius=20)
+    assert _kernels.guided_wta_tile_rows(cfg.radius, cfg.size_d) == 16
+    pairs = [_pair(70, 100, s, dev) for s in (4, 5, 6)]
+    outs = guided_wta_fused(torch.stack([p[0] for p in pairs]),
+                            torch.stack([p[1] for p in pairs]), cfg.d_min, cfg)
+    for i, (a, b) in enumerate(pairs):
+        for j, t in enumerate(guided_wta_fused(a, b, cfg.d_min, cfg)):
+            assert torch.equal(outs[j][i], t), (i, j)
+
+
+def test_k3_smem_bytes_mirror(dev):
+    """tests/test_torch_kernels.py's mirror of K3's shared memory (what
+    the CPU tests of its tile choice read) equals the C function."""
+    from test_torch_kernels import k3_smem_bytes
+
+    from stereo_matching_cuda_tpu_torch.ops import _kernels
+
+    lib = _kernels.build()["lib"]
+    for radius in (1, 9, 23):
+        for th in (32, 16, 8):
+            for d in (1, 16, 128):
+                assert lib.guided_wta_smem_bytes(radius, th, d) == k3_smem_bytes(
+                    radius, th, d), (radius, th, d)
