@@ -1,7 +1,7 @@
 """K3 (``stereo_matching_cuda_tpu_torch/csrc/guided_wta.cu``) per tile
 height and through its wrapper, on one NVIDIA GPU.
 
-    python3 scripts/torch_k3_tiles.py [--root DIR] [--variant FLAGS ...]
+    python3 scripts/torch_k3_tiles.py [--root DIR] [--variant=FLAGS ...]
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
 It prints the card's name and power limit, K3's registers and spills as
@@ -13,9 +13,10 @@ CUDA events after warm-up, in one process.
 
 ``--root DIR`` imports the package from another checkout (for example
 an older commit unpacked with ``git archive``), whose C entry is the
-same.  Each ``--variant`` builds the kernels again with extra ``nvcc``
-flags (``-DK3_RUN=8``) and times the wrapper's tile with that library
-and with the default one, each held against the plain version.
+same.  Each ``--variant=FLAGS`` builds the kernels again with extra
+``nvcc`` flags (``--variant="-DK3_RUN=4 -DK3_RUN_DOUBLE=1"``) and times
+the wrapper's tile with that library and with the default one, each
+held against the plain version.
 Exits non-zero without a CUDA device.
 """
 

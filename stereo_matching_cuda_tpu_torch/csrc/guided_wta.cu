@@ -22,30 +22,123 @@
 // as the TPU kernel's tiles do.  The CTA loads both uint8 input
 // windows into shared memory once (the match window widened by the D-1
 // slice reach), computes the guide statistics over tile+R, then loops over
-// the slices in ascending order.  Each slice builds the cost over tile+2R
-// in shared memory and reduces it with separable box sums (horizontal,
-// then vertical).  Every window is a sum of its own 2R+1 values, never a
-// running add/subtract (the cost is not integer-valued and would drift)
-// nor an integral image (float32 cancellation at 6 MP).  A thread sums
-// kRB adjacent windows at once: they share 2R+2-kRB middle values, loaded
-// and added once.  Each thread keeps (best, dmap) of its TH/8 pixels in
+// the slices in ascending order.  Each slice builds the cost and I*cost
+// over tile+2R in shared memory and reduces them with separable box sums:
+// x-sums, y-sums to a and b, x-sums of a and b, y-sums to q.  The first
+// three passes take runs of kRun = 8 adjacent windows a thread: the run's
+// first window is summed directly and each next one adds the value that
+// enters and subtracts the one that leaves (kept in registers from the
+// first sum), so a run costs 2R + kRun loads and its float error grows by
+// at most two roundings a window from a fresh sum (PR 1's running sums
+// drifted because they were never reseeded).  The last pass is each
+// thread's own TH/16 rows, summed directly (a run of 2 costs the same).
+// Neither is an integral image (float32 cancellation at 6 MP).  The
+// guide statistics stay integer sums, exact and equal to the plain
+// version's bit for bit.  Each thread keeps (best, dmap) of its rows in
 // registers across slices.
 //
-// What bounds it on the H100.  Per output pixel and slice it issues 4 box
-// passes (x and y, for two planes each) of about (2R+kRB)/kRB shared-
-// memory loads and (2R+3kRB)/kRB adds, scaled by the tile's halo ratio
-// ((32+4R)(TH+4R)/(32*TH) for the cost), plus the cost itself, against 2
-// bytes of input per pixel: it is bound by shared-memory traffic and
-// issue, not by device memory.  The tile keeps every intermediate in
-// shared memory (row pitches odd, so a warp walking rows hits 32 banks);
-// a taller tile lowers the halo ratio.  K1 (guided_wta_stream.cu) walks
-// rows down a band instead and pays the y halo once per band.
+// Block and tile.  A 16- or 32-row tile runs 32 x 16 = 512 threads at
+// __launch_bounds__(512, 2): two CTAs, 32 warps, per SM (at most 64
+// registers a thread).  An 8-row tile, which radii above 20 need for
+// shared memory, keeps 32 x 8 threads.  The wrapper takes the tile that
+// fits the most CTAs per SM, then the tallest (ops/_kernels.py).
+//
+// What bounds it on the H100.  Per output pixel and slice it issues four
+// box passes over two planes (about (2R + kRun)/kRun loads and 4 adds a
+// window in the first three), scaled by the tile's halo ratio
+// ((32+4R)(TH+4R)/(32*TH) for the cost: 4.5 at R = 9, TH = 32), plus the
+// cost itself, against 2 bytes of input per pixel: it is bound by
+// shared-memory latency and issue, not by device memory or float
+// throughput.  Row pitches are odd, so a warp walking rows hits 32 banks.
+// K1 (guided_wta_stream.cu) walks rows down a band instead and pays the
+// y halo once per band.
+//
+// What each redesign stage changed (PERF.md, Findings, PR 5).  Stage 1:
+// 32 x 16 blocks instead of 32 x 8, twice the warps per SM (-15% at
+// 6 MP); the 16-row tile that would give a 288x384 frame a CTA per SM ran
+// slower than the 32-row one, so the tile stays tallest-first.  Stage 2,
+// derivatives cached per tile, ran 5-9% slower and was reverted: its
+// int16 caches fit beside two CTAs per SM only with I*cost formed in the
+// x-pass at every read.  Stage 3: the runs above (-17% at 6 MP).
+
+#include <type_traits>
 
 #include "guided_common.cuh"
+
+// Windows per run of the sliding box passes, and whether a run adds in
+// double (scripts/torch_k3_tiles.py builds other settings with -D).
+#ifndef K3_RUN
+#define K3_RUN 8
+#endif
+#ifndef K3_RUN_DOUBLE
+#define K3_RUN_DOUBLE 0
+#endif
 
 namespace {
 
 using namespace guided;
+
+constexpr int kRun = K3_RUN;
+using RunAcc = std::conditional<K3_RUN_DOUBLE != 0, double, float>::type;
+
+// One run of S adjacent windows of k values over two planes: window i
+// is a(i) + ... + a(i + k - 1) (and the same of b), for i < nv <= S.
+// The first window is summed directly; each next one adds the value that
+// enters and subtracts the one that leaves, which is one of the first
+// window's own values, kept in registers (needs S - 1 <= k or reads them
+// again).  So a run costs k + S - 1 loads and k - 1 + 2(S - 1) adds per
+// plane, and its error grows by at most two roundings a window from a
+// fresh direct sum.  emit(i, sum_a, sum_b) takes each window.  Reads
+// nothing past window nv - 1.
+template <int S, typename Acc, typename LA, typename LB, typename Emit>
+__device__ inline void run_sums(LA a, LB b, int k, int nv, Emit emit) {
+  float la[S], lb[S];                   // the values that leave: j < S - 1
+  Acc sa = 0, sb = 0;
+#pragma unroll
+  for (int j = 0; j < S - 1; ++j) {
+    const bool need = j < k || j + 1 < nv;
+    la[j] = need ? a(j) : 0.f;
+    lb[j] = need ? b(j) : 0.f;
+    if (j < k) {
+      sa += (Acc)la[j];
+      sb += (Acc)lb[j];
+    }
+  }
+  for (int j = S - 1; j < k; ++j) {
+    sa += (Acc)a(j);
+    sb += (Acc)b(j);
+  }
+  emit(0, (float)sa, (float)sb);
+#pragma unroll
+  for (int i = 1; i < S; ++i) {
+    if (i >= nv) break;
+    sa += (Acc)a(k + i - 1) - (Acc)la[i - 1];
+    sb += (Acc)b(k + i - 1) - (Acc)lb[i - 1];
+    emit(i, (float)sa, (float)sb);
+  }
+}
+
+// x-window sums of two planes in runs of kRun: dst[r][c] = sum_j
+// src[r][c + j] for r < rows, c < cols.  Lanes walk rows (odd pitches:
+// no bank conflicts).
+template <int NT>
+__device__ inline void x_runs(const float* a, const float* b, int src_pitch,
+                              float* da, float* db, int dst_pitch,
+                              int rows, int cols, int k, int tid) {
+  const int nrun = (cols + kRun - 1) / kRun;
+  for (int t = tid; t < rows * nrun; t += NT) {
+    const int r = t % rows, c0 = (t / rows) * kRun;
+    const float* pa = a + r * src_pitch + c0;
+    const float* pb = b + r * src_pitch + c0;
+    float* qa = da + r * dst_pitch + c0;
+    float* qb = db + r * dst_pitch + c0;
+    run_sums<kRun, RunAcc>([&](int j) { return pa[j]; }, [&](int j) { return pb[j]; },
+                           k, min(kRun, cols - c0), [&](int i, float sa, float sb) {
+                             qa[i] = sa;
+                             qb[i] = sb;
+                           });
+  }
+}
 
 // Geometry of one CTA's shared-memory windows.  Pitches are odd.
 struct Geom {
@@ -197,36 +290,36 @@ guided_wta_kernel(const uint8_t* __restrict__ gray1,
     }
     __syncthreads();
 
-    // 2. x-window sums over (E rows) x (M columns).
-    x_sums<float, NT>(buf1a, buf1b, g.PE, buf2a, buf2b, g.PM, g.ER, g.MC, k, tid);
+    // 2. x-window sums over (E rows) x (M columns), in runs.
+    x_runs<NT>(buf1a, buf1b, g.PE, buf2a, buf2b, g.PM, g.ER, g.MC, k, tid);
     __syncthreads();
 
-    // 3. y-window sums -> mean_p, mean_Ip -> a, b over M (into buf1).
+    // 3. y-window sums in runs down a column (lanes on adjacent columns)
+    // -> mean_p, mean_Ip -> a, b over M (into buf1).
     {
-      const int nblk = (g.MR + kRB - 1) / kRB;
-      for (int t = tid; t < g.MC * nblk; t += NT) {
-        const int c = t % g.MC, r0 = (t / g.MC) * kRB;
-        const int nv = min(kRB, g.MR - r0);
-        float s1[kRB], s2[kRB];
-        window_sums<kRB>(buf2a + r0 * g.PM + c, g.PM, k, nv, s1);
-        window_sums<kRB>(buf2b + r0 * g.PM + c, g.PM, k, nv, s2);
-#pragma unroll
-        for (int i = 0; i < kRB; ++i) {
-          if (i >= nv) break;
-          const int r = r0 + i, gy = ym + r, gx = xm + c;
-          float a = 0.f, b = 0.f;
-          if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-            guided_ab(s1[i], s2[i], window_area(gy, gx, H, W, R),
-                      mean_i[r * g.MC + c], c_i[r * g.MC + c], a, b);
-          buf1a[r * g.PM + c] = a;
-          buf1b[r * g.PM + c] = b;
-        }
+      const int nrun = (g.MR + kRun - 1) / kRun;
+      for (int t = tid; t < g.MC * nrun; t += NT) {
+        const int c = t % g.MC, r0 = (t / g.MC) * kRun;
+        const float* pa = buf2a + r0 * g.PM + c;
+        const float* pb = buf2b + r0 * g.PM + c;
+        run_sums<kRun, RunAcc>(
+            [&](int j) { return pa[j * g.PM]; }, [&](int j) { return pb[j * g.PM]; }, k,
+            min(kRun, g.MR - r0), [&](int i, float s1, float s2) {
+              const int r = r0 + i, gy = ym + r, gx = xm + c;
+              float a = 0.f, b = 0.f;
+              if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                guided_ab(s1, s2, window_area(gy, gx, H, W, R), mean_i[r * g.MC + c],
+                          c_i[r * g.MC + c], a, b);
+              buf1a[r * g.PM + c] = a;
+              buf1b[r * g.PM + c] = b;
+            });
       }
     }
     __syncthreads();
 
-    // 4. x-window sums of a, b over (M rows) x (tile columns) (into buf2).
-    x_sums<float, NT>(buf1a, buf1b, g.PM, buf2a, buf2b, kTileW + 1, g.MR, kTileW, k, tid);
+    // 4. x-window sums of a, b over (M rows) x (tile columns) (into
+    // buf2), in runs.
+    x_runs<NT>(buf1a, buf1b, g.PM, buf2a, buf2b, kTileW + 1, g.MR, kTileW, k, tid);
     __syncthreads();
 
     // 5. y-window sums -> q -> streaming WTA in registers, rows yq ..

@@ -3,7 +3,11 @@
   K1 guided_wta_stream.cu       one view, row walk down a band
                                 (guided_wta_stream)
   K2 lr_fill.cu                 LR check + occlusion fill (lr_fill)
-  K3 guided_wta.cu              one view, tiled (guided_wta)
+  K3 guided_wta.cu              one view, tiled (guided_wta): 32-column
+                                tiles of 32, 16 or 8 rows, the tallest
+                                of those that fit the most CTAs per SM
+                                (guided_wta_tile_rows); 512-thread
+                                blocks, 256 for 8 rows
   K4 guided_wta_dual.cu         both views in one pass, tiled (guided_wta_dual)
   K5 guided_wta_dual_stream.cu  both views, row walk down a band
                                 (guided_wta_dual_stream)
