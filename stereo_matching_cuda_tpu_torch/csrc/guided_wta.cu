@@ -84,12 +84,12 @@ using RunAcc = std::conditional<K3_RUN_DOUBLE != 0, double, float>::type;
 // One run of S adjacent windows of k values over two planes: window i
 // is a(i) + ... + a(i + k - 1) (and the same of b), for i < nv <= S.
 // The first window is summed directly; each next one adds the value that
-// enters and subtracts the one that leaves, which is one of the first
-// window's own values, kept in registers (needs S - 1 <= k or reads them
-// again).  So a run costs k + S - 1 loads and k - 1 + 2(S - 1) adds per
-// plane, and its error grows by at most two roundings a window from a
-// fresh direct sum.  emit(i, sum_a, sum_b) takes each window.  Reads
-// nothing past window nv - 1.
+// enters and subtracts the one that leaves, which (for S - 1 <= k) is one
+// of the first window's own values, kept in registers.  So a run costs
+// k + S - 1 loads and k - 1 + 2(S - 1) adds per plane, and its error
+// grows by at most two roundings a window from a fresh direct sum.
+// emit(i, sum_a, sum_b) takes each window.  Reads nothing past window
+// nv - 1.
 template <int S, typename Acc, typename LA, typename LB, typename Emit>
 __device__ inline void run_sums(LA a, LB b, int k, int nv, Emit emit) {
   float la[S], lb[S];                   // the values that leave: j < S - 1

@@ -1,8 +1,10 @@
 """The kernels' launch-shape choice on the CPU, with no card and no CUDA
 toolkit: ``_kernels._pick_rows`` (K1, K4, K5) on synthetic {rows:
-shared-memory bytes} tables, and K3's tile height (``guided_wta_tile_rows``) on a table that
-mirrors ``guided_wta_smem_bytes`` in ``csrc/guided_wta.cu``
-(tests/test_torch_cuda.py holds the mirror to the C function on a card)."""
+shared-memory bytes} tables, and K3's tile height
+(``guided_wta_tile_rows``) on a table that mirrors
+``guided_wta_smem_bytes`` in ``csrc/guided_wta.cu``
+(tests/test_torch_cuda.py holds the mirror to the C function on a
+card)."""
 
 import inspect
 
