@@ -45,6 +45,7 @@ from stereo_matching_cuda_tpu_torch.ops.fused_guided import (
     guided_wta_fused_reference)
 from stereo_matching_cuda_tpu_torch.ops.fused_post import lr_fill_fused, lr_fill_reference
 from stereo_matching_cuda_tpu_torch.pipeline import stereo_pipeline
+from stereo_matching_cuda_tpu_torch.timing import cuda_ms
 from stereo_matching_cuda_tpu_torch.utils.synth import make_scene
 
 DEV = "cuda"
@@ -343,29 +344,13 @@ def check_box(sc, out):
     print(f"box 288x384: equal to its plain path on every key, bad-2.0 {bad:.4f}%")
 
 
-def cuda_ms(fn, iters, warmup=3):
-    """Mean ms per call of ``fn`` on the card, CUDA events after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def k3_tile(h, w, cfg):
     """K3's launch shape on one (h, w) frame: tile height, the grid's
     CTAs, and the CTAs per SM that its shared memory allows."""
     rows = _kernels.guided_wta_tile_rows(cfg.radius, cfg.size_d)
     smem = _kernels.build()["lib"].guided_wta_smem_bytes(cfg.radius, rows, cfg.size_d)
-    per_sm = _kernels._SMEM_PER_SM // (smem + _kernels._SMEM_RESERVED_PER_BLOCK)
     return (f"; k3 tile {rows} rows, {-(-w // 32) * -(-h // rows)} CTAs, "
-            f"{per_sm} CTAs/SM by shared memory")
+            f"{_kernels.smem_ctas_per_sm(smem)} CTAs/SM by shared memory")
 
 
 def on_card(sc):

@@ -1,29 +1,24 @@
 """K3 (``stereo_matching_cuda_tpu_torch/csrc/guided_wta.cu``) per tile
 height and through its wrapper, on one NVIDIA GPU.
 
-    python3 scripts/torch_k3_tiles.py [--root DIR] [--variant=FLAGS ...]
+    python3 scripts/torch_k3_tiles.py [--root DIR]
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
 It prints the card's name and power limit, K3's registers and spills as
 ptxas reports them, and for 288x384 at 16 and 64 disparities, 1992x3008
 at 16 and 1988x2948 at 128 (random frames): ms per launch through
-``guided_wta_fused`` (the wrapper's own tile) and through the C entry at
-each tile height of 32, 16 and 8 whose shared memory fits one block;
-CUDA events after warm-up, in one process.
+``guided_wta_fused`` (the wrapper's own tile) and through
+``_kernels.guided_wta`` at each tile height of 32, 16 and 8 whose shared
+memory fits one block; CUDA events after warm-up, in one process.
 
 ``--root DIR`` imports the package from another checkout (for example
-an older commit unpacked with ``git archive``), whose C entry is the
-same.  Each ``--variant=FLAGS`` builds the kernels again with extra
-``nvcc`` flags (``--variant="-DK3_RUN=4 -DK3_RUN_DOUBLE=1"``) and times
-the wrapper's tile with that library and with the default one, each
-held against the plain version.
-Exits non-zero without a CUDA device.
+an older commit unpacked with ``git archive``) whose ``guided_wta``
+takes ``tile_rows``.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import re
 import subprocess
 import sys
@@ -34,20 +29,6 @@ import torch
 
 SHAPES = ((288, 384, 16, 50), (1992, 3008, 16, 10), (288, 384, 64, 20),
           (1988, 2948, 128, 3))
-
-
-def cuda_ms(fn, iters, warmup=2):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def k3_ptxas(log: str) -> list[str]:
@@ -65,8 +46,6 @@ def k3_ptxas(log: str) -> list[str]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
-    ap.add_argument("--variant", action="append", default=[],
-                    help="extra nvcc flags, space-separated (repeatable)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -75,8 +54,8 @@ def main() -> int:
     from stereo_matching_cuda_tpu_torch import StereoConfig
     from stereo_matching_cuda_tpu_torch.ops import _kernels
     from stereo_matching_cuda_tpu_torch.ops.cost import cost_constants
-    from stereo_matching_cuda_tpu_torch.ops.fused_guided import (
-        guided_wta_fused, guided_wta_fused_reference)
+    from stereo_matching_cuda_tpu_torch.ops.fused_guided import guided_wta_fused
+    from stereo_matching_cuda_tpu_torch.timing import cuda_ms
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
@@ -86,12 +65,6 @@ def main() -> int:
     for line in k3_ptxas(info["log"]):
         print(f"ptxas {line}")
     lib = info["lib"]
-    variants = {}
-    for flags in args.variant:
-        vinfo = _kernels.build(tuple(flags.split()))
-        variants[flags] = vinfo["lib"]
-        for line in k3_ptxas(vinfo["log"]):
-            print(f"ptxas [{flags}] {line}")
     rng = np.random.default_rng(0)
     for h, w, d, iters in SHAPES:
         cfg = StereoConfig(d_min=-(d - 1), d_max=0)
@@ -103,34 +76,18 @@ def main() -> int:
         ms = cuda_ms(lambda: guided_wta_fused(g1[0], g2[0], cfg.d_min, cfg), iters)
         print(f"{tag}: wrapper {ms:.4f} ms")
 
-        def direct(th, lib=lib):
-            err = lib.guided_wta_launch(
-                g1.data_ptr(), g2.data_ptr(), best.data_ptr(), dmap.data_ptr(),
-                1, h, w, cfg.d_min, d, cfg.radius, th, *cost_constants(cfg),
-                float(cfg.eps), torch.cuda.current_stream().cuda_stream)
-            assert err == 0, f"guided_wta_launch: CUDA error {err}"
+        def direct(th):
+            _kernels.guided_wta(g1, g2, best, dmap, cfg.d_min, d, cfg.radius,
+                                cost_constants(cfg), cfg.eps, tile_rows=th)
 
         for th in (32, 16, 8):
             smem = lib.guided_wta_smem_bytes(cfg.radius, th, d)
             if smem > _kernels._SMEM_LIMIT:
                 continue
             ctas = -(-w // 32) * -(-h // th)
-            per_sm = _kernels._SMEM_PER_SM // (smem + _kernels._SMEM_RESERVED_PER_BLOCK)
             print(f"{tag}: tile {th} rows, {ctas} CTAs, smem {smem} B "
-                  f"({per_sm} CTAs/SM by smem): {cuda_ms(lambda: direct(th), iters):.4f} ms")
-        if variants:
-            # the wrapper's tile, default build and each variant, against
-            # the plain version (slices chunked by 16 above 32 disparities)
-            th = _kernels.guided_wta_tile_rows(cfg.radius, d)
-            plain = cfg if d <= 32 else dataclasses.replace(cfg, d_chunk=16)
-            ref = guided_wta_fused_reference(g1[0], g2[0], cfg.d_min, plain)
-            for flags, vlib in {"default": lib, **variants}.items():
-                ms = cuda_ms(lambda: direct(th, vlib), iters)
-                flips = int((dmap[0] != ref[1]).sum())
-                err = float((best[0] - ref[0]).abs().max())
-                print(f"{tag}: [{flags}] tile {th}: {ms:.4f} ms; against the plain "
-                      f"version: {flips} label flips, max |Δbest| {err:.3g}")
-            del ref
+                  f"({_kernels.smem_ctas_per_sm(smem)} CTAs/SM by smem): "
+                  f"{cuda_ms(lambda: direct(th), iters):.4f} ms")
         del g1, g2, best, dmap
     return 0
 

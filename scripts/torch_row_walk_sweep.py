@@ -26,22 +26,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from stereo_matching_cuda_tpu_torch import DEFAULT_CONFIG  # noqa: E402
 from stereo_matching_cuda_tpu_torch.ops import _kernels  # noqa: E402
 from stereo_matching_cuda_tpu_torch.ops.cost import cost_constants  # noqa: E402
+from stereo_matching_cuda_tpu_torch.timing import cuda_ms  # noqa: E402
 
 BANDS = (8, 16, 24, 32, 48, 64, 96, 128)
-
-
-def cuda_ms(fn, iters, warmup=2):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def main() -> int:

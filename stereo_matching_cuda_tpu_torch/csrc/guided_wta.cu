@@ -61,25 +61,15 @@
 // int16 caches fit beside two CTAs per SM only with I*cost formed in the
 // x-pass at every read.  Stage 3: the runs above (-17% at 6 MP).
 
-#include <type_traits>
-
 #include "guided_common.cuh"
-
-// Windows per run of the sliding box passes, and whether a run adds in
-// double (scripts/torch_k3_tiles.py builds other settings with -D).
-#ifndef K3_RUN
-#define K3_RUN 8
-#endif
-#ifndef K3_RUN_DOUBLE
-#define K3_RUN_DOUBLE 0
-#endif
 
 namespace {
 
 using namespace guided;
 
-constexpr int kRun = K3_RUN;
-using RunAcc = std::conditional<K3_RUN_DOUBLE != 0, double, float>::type;
+// Windows per run of the sliding box passes: float runs of 8 beat 4, 12
+// and 16 and runs added in double (PERF.md, Findings, PR 5).
+constexpr int kRun = 8;
 
 // One run of S adjacent windows of k values over two planes: window i
 // is a(i) + ... + a(i + k - 1) (and the same of b), for i < nv <= S.
@@ -90,31 +80,31 @@ using RunAcc = std::conditional<K3_RUN_DOUBLE != 0, double, float>::type;
 // grows by at most two roundings a window from a fresh direct sum.
 // emit(i, sum_a, sum_b) takes each window.  Reads nothing past window
 // nv - 1.
-template <int S, typename Acc, typename LA, typename LB, typename Emit>
+template <int S, typename LA, typename LB, typename Emit>
 __device__ inline void run_sums(LA a, LB b, int k, int nv, Emit emit) {
   float la[S], lb[S];                   // the values that leave: j < S - 1
-  Acc sa = 0, sb = 0;
+  float sa = 0.f, sb = 0.f;
 #pragma unroll
   for (int j = 0; j < S - 1; ++j) {
     const bool need = j < k || j + 1 < nv;
     la[j] = need ? a(j) : 0.f;
     lb[j] = need ? b(j) : 0.f;
     if (j < k) {
-      sa += (Acc)la[j];
-      sb += (Acc)lb[j];
+      sa += la[j];
+      sb += lb[j];
     }
   }
   for (int j = S - 1; j < k; ++j) {
-    sa += (Acc)a(j);
-    sb += (Acc)b(j);
+    sa += a(j);
+    sb += b(j);
   }
-  emit(0, (float)sa, (float)sb);
+  emit(0, sa, sb);
 #pragma unroll
   for (int i = 1; i < S; ++i) {
     if (i >= nv) break;
-    sa += (Acc)a(k + i - 1) - (Acc)la[i - 1];
-    sb += (Acc)b(k + i - 1) - (Acc)lb[i - 1];
-    emit(i, (float)sa, (float)sb);
+    sa += a(k + i - 1) - la[i - 1];
+    sb += b(k + i - 1) - lb[i - 1];
+    emit(i, sa, sb);
   }
 }
 
@@ -132,11 +122,11 @@ __device__ inline void x_runs(const float* a, const float* b, int src_pitch,
     const float* pb = b + r * src_pitch + c0;
     float* qa = da + r * dst_pitch + c0;
     float* qb = db + r * dst_pitch + c0;
-    run_sums<kRun, RunAcc>([&](int j) { return pa[j]; }, [&](int j) { return pb[j]; },
-                           k, min(kRun, cols - c0), [&](int i, float sa, float sb) {
-                             qa[i] = sa;
-                             qb[i] = sb;
-                           });
+    run_sums<kRun>([&](int j) { return pa[j]; }, [&](int j) { return pb[j]; },
+                   k, min(kRun, cols - c0), [&](int i, float sa, float sb) {
+                     qa[i] = sa;
+                     qb[i] = sb;
+                   });
   }
 }
 
@@ -302,7 +292,7 @@ guided_wta_kernel(const uint8_t* __restrict__ gray1,
         const int c = t % g.MC, r0 = (t / g.MC) * kRun;
         const float* pa = buf2a + r0 * g.PM + c;
         const float* pb = buf2b + r0 * g.PM + c;
-        run_sums<kRun, RunAcc>(
+        run_sums<kRun>(
             [&](int j) { return pa[j * g.PM]; }, [&](int j) { return pb[j * g.PM]; }, k,
             min(kRun, g.MR - r0), [&](int i, float s1, float s2) {
               const int r = r0 + i, gy = ym + r, gx = xm + c;

@@ -76,16 +76,13 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def build(defines: tuple = ()) -> dict:
-    """Compile ``csrc/*.cu`` (once per hash of the sources, headers and
-    flags) and load the library.  ``defines``: extra nvcc flags, to build
-    and measure another setting of a kernel (``scripts/torch_k3_tiles.py``);
-    the wrappers use the default build.
+def build() -> dict:
+    """Compile ``csrc/*.cu`` (once per hash of the sources and headers)
+    and load the library.
     Returns {"lib": CDLL, "path": str, "seconds": build time (0 when the
     library was already built), "log": nvcc's output}."""
     sources = sorted(CSRC.glob("*.cu"))
-    flags = (*NVCC_FLAGS, *defines)
-    digest = hashlib.sha256(" ".join(flags).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -97,7 +94,7 @@ def build(defines: tuple = ()) -> dict:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
-            procs = [subprocess.Popen([nvcc, *flags, "-c", str(src), "-o", obj],
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True)
                      for src, obj in zip(sources, objs)]
@@ -147,19 +144,25 @@ _SMEM_PER_SM = 233_472
 _SMEM_RESERVED_PER_BLOCK = 1_024
 
 # CTAs per SM each kernel's tile or band is sized for: occupancy first,
-# then height (PERF.md, Findings: the dual-view tile sweeps).  K3's 512-
-# thread block is built for two (``__launch_bounds__(512, 2)``: at most
-# 64 registers a thread), and so is its 256-thread block of 8-row tiles.
+# then height (PERF.md, Findings: PR 2 for K4 and K5, PR 5 for K3).
+# K3's 512-thread block is built for two (``__launch_bounds__(512, 2)``:
+# at most 64 registers a thread), and so is its 256-thread block of
+# 8-row tiles.
 _K3_CTAS_PER_SM = 2
 _K4_CTAS_PER_SM = 2
 _K5_CTAS_PER_SM = 3
+
+
+def smem_ctas_per_sm(smem: int) -> int:
+    """CTAs of ``smem`` bytes of dynamic shared memory that fit one SM."""
+    return _SMEM_PER_SM // (smem + _SMEM_RESERVED_PER_BLOCK)
 
 
 def _fullest_rows(smem_by_rows: dict, per_sm: int) -> list:
     """Of {rows: shared-memory bytes}, in the table's order, the heights
     that fit the most CTAs on one SM (counting up to ``per_sm``); empty if
     none fits one block."""
-    occ = {r: min(per_sm, _SMEM_PER_SM // (b + _SMEM_RESERVED_PER_BLOCK))
+    occ = {r: min(per_sm, smem_ctas_per_sm(b))
            for r, b in smem_by_rows.items() if b <= _SMEM_LIMIT}
     return [r for r in occ if occ[r] == max(occ.values())]
 
@@ -200,12 +203,14 @@ def guided_wta_tile_rows(radius: int, size_d: int) -> int:
 
 
 def guided_wta(gray1, gray2, best, dmap, dmin, size_d, radius, constants,
-               eps) -> None:
+               eps, tile_rows=None) -> None:
     """Launch K3 (csrc/guided_wta.cu) on the current stream.
-    gray1/gray2: uint8 (N, H, W); best/dmap: float32 (N, H, W)."""
+    gray1/gray2: uint8 (N, H, W); best/dmap: float32 (N, H, W).
+    ``tile_rows`` (32, 16 or 8) defaults to ``guided_wta_tile_rows``; it
+    is set only to test or measure the other tile heights."""
     lib = build()["lib"]
     n, h, w = gray1.shape
-    th = guided_wta_tile_rows(radius, size_d)
+    th = tile_rows or guided_wta_tile_rows(radius, size_d)
     err = lib.guided_wta_launch(
         gray1.data_ptr(), gray2.data_ptr(), best.data_ptr(), dmap.data_ptr(),
         n, h, w, dmin, size_d, radius, th, *constants, float(eps),
@@ -232,7 +237,7 @@ _BANDS = tuple(range(128, 0, -8))
 
 # K1's tile width (32 or 64 output columns per CTA) and the CTAs per SM
 # its band is sized for: 64 columns at two CTAs per SM (band 48 at 6 MP)
-# measured fastest (PERF.md, Findings: the single-view row walk).
+# measured fastest (PERF.md, Findings, PR 3: K1's row walk).
 _K1_TILE_W = 64
 _K1_CTAS_PER_SM = 2
 

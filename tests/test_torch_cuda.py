@@ -196,19 +196,15 @@ def test_dual_route_launch_counts(dev, kw, counts):
 
 
 def _k3_at(g1, g2, dmin, cfg, th):
-    """K3 through its C entry at tile height ``th`` (block height 16 for
-    16 and 32 rows, 8 for 8): uint8 (H, W) x2 -> (best, dmap)."""
+    """K3 at tile height ``th`` (block height 16 for 16 and 32 rows, 8 for
+    8): uint8 (H, W) x2 -> (best, dmap)."""
     from stereo_matching_cuda_tpu_torch.ops import _kernels
     from stereo_matching_cuda_tpu_torch.ops.cost import cost_constants
 
-    h, w = g1.shape
-    best = torch.empty((1, h, w), dtype=torch.float32, device=g1.device)
+    best = torch.empty((1, *g1.shape), dtype=torch.float32, device=g1.device)
     dmap = torch.empty_like(best)
-    err = _kernels.build()["lib"].guided_wta_launch(
-        g1.data_ptr(), g2.data_ptr(), best.data_ptr(), dmap.data_ptr(), 1, h, w,
-        dmin, cfg.size_d, cfg.radius, th, *cost_constants(cfg), float(cfg.eps),
-        torch.cuda.current_stream().cuda_stream)
-    assert err == 0, err
+    _kernels.guided_wta(g1[None], g2[None], best, dmap, dmin, cfg.size_d, cfg.radius,
+                        cost_constants(cfg), cfg.eps, tile_rows=th)
     return best[0], dmap[0]
 
 
@@ -233,7 +229,10 @@ def _assert_k3_bound(g1, g2, dmin, cfg, tiles):
 @pytest.mark.parametrize("h,w", [(1, 40), (17, 31), (33, 33), (64, 65), (40, 97)])
 def test_k3_tile_edges(dev, h, w):
     """Frames that straddle the tile (32 columns; 32, 16, 8 rows) and the
-    window runs, at every tile height."""
+    window runs, at every tile height; the wrapper takes 32 rows at R=9."""
+    from stereo_matching_cuda_tpu_torch.ops import _kernels
+
+    assert _kernels.guided_wta_tile_rows(DEFAULT_CONFIG.radius, DEFAULT_CONFIG.size_d) == 32
     g1, g2 = _pair(h, w, h * w, dev)
     _assert_k3_bound(g1, g2, DEFAULT_CONFIG.d_min, DEFAULT_CONFIG, (32, 16, 8))
 
@@ -249,8 +248,8 @@ def test_k3_one_disparity(dev, dmin):
 
 @pytest.mark.parametrize("radius", [1, 23])
 def test_k3_radius_extremes(dev, radius):
-    """R=1 at every tile height; R=23 fits only the 8-row tile (256
-    threads), which the wrapper then picks."""
+    """R=1 at every tile height, the wrapper taking 32 rows; R=23 fits
+    only the 8-row tile (256 threads), which the wrapper then picks."""
     from stereo_matching_cuda_tpu_torch.ops import _kernels
 
     cfg = dataclasses.replace(DEFAULT_CONFIG, radius=radius)
@@ -258,8 +257,7 @@ def test_k3_radius_extremes(dev, radius):
     assert tiles == ([32, 16, 8] if radius == 1 else [8]), tiles
     g1, g2 = _pair(70, 100, radius, dev)
     _assert_k3_bound(g1, g2, cfg.d_min, cfg, tiles)
-    if radius == 23:
-        assert _kernels.guided_wta_tile_rows(23, cfg.size_d) == 8
+    assert _kernels.guided_wta_tile_rows(radius, cfg.size_d) == tiles[0]
 
 
 def test_k3_batch_equals_per_frame_on_16_row_tiles(dev):
@@ -276,18 +274,3 @@ def test_k3_batch_equals_per_frame_on_16_row_tiles(dev):
     for i, (a, b) in enumerate(pairs):
         for j, t in enumerate(guided_wta_fused(a, b, cfg.d_min, cfg)):
             assert torch.equal(outs[j][i], t), (i, j)
-
-
-def test_k3_smem_bytes_mirror(dev):
-    """tests/test_torch_kernels.py's mirror of K3's shared memory (what
-    the CPU tests of its tile choice read) equals the C function."""
-    from test_torch_kernels import k3_smem_bytes
-
-    from stereo_matching_cuda_tpu_torch.ops import _kernels
-
-    lib = _kernels.build()["lib"]
-    for radius in (1, 9, 23):
-        for th in (32, 16, 8):
-            for d in (1, 16, 128):
-                assert lib.guided_wta_smem_bytes(radius, th, d) == k3_smem_bytes(
-                    radius, th, d), (radius, th, d)

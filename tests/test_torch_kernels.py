@@ -1,10 +1,8 @@
 """The kernels' launch-shape choice on the CPU, with no card and no CUDA
-toolkit: ``_kernels._pick_rows`` (K1, K4, K5) on synthetic {rows:
-shared-memory bytes} tables, and K3's tile height
-(``guided_wta_tile_rows``) on a table that mirrors
-``guided_wta_smem_bytes`` in ``csrc/guided_wta.cu``
-(tests/test_torch_cuda.py holds the mirror to the C function on a
-card)."""
+toolkit: ``_kernels._pick_rows`` (K1, K4, K5) and K3's tile height
+(``guided_wta_tile_rows``) on synthetic {rows: shared-memory bytes}
+tables.  tests/test_torch_cuda.py checks K3's picks with the real
+``guided_wta_smem_bytes`` on a card."""
 
 import inspect
 
@@ -16,22 +14,28 @@ N_SM = 132            # an H100 SXM's SMs
 SMALL, BIG = (288, 384), (1992, 3008)
 
 
-def k3_smem_bytes(R: int, TH: int, D: int) -> int:
-    """Mirror of ``smem_bytes`` in csrc/guided_wta.cu (bytes)."""
-    P = 2 * R
-    ER, EC = TH + 2 * P, 32 + 2 * P          # cost region
-    MR, MC = TH + P, 32 + P                  # a/b region
-    PE, PM = EC | 1, MC | 1                  # odd pitches
-    floats = 2 * ER * PE + 2 * ER * PM + 2 * MR * MC
-    return floats * 4 + ER * (EC + 2) + ER * (EC + D + 1)
+# {(radius, size_d): {rows: bytes}}: K3's shared memory, rounded, where
+# every tile gives two CTAs per SM (R=1, 9), only 16 and 8 rows fit one
+# block (R=20), only 8 rows (R=23), none (R=40), and a made-up radius 99
+# whose 32-row tile fits one CTA per SM and the others two.
+K3_SMEM = {(1, 1): {32: 33_000, 16: 18_000, 8: 11_000},
+           (9, 16): {32: 96_000, 16: 72_000, 8: 60_000},
+           (9, 64): {32: 99_000, 16: 74_000, 8: 62_000},
+           (9, 128): {32: 104_000, 16: 78_000, 8: 65_000},
+           (20, 16): {32: 235_000, 16: 198_000, 8: 180_000},
+           (23, 16): {32: 284_000, 16: 244_000, 8: 224_000},
+           (40, 16): {32: 648_000, 16: 588_000, 8: 558_000},
+           (99, 16): {32: 120_000, 16: 96_000, 8: 60_000}}
 
 
 @pytest.fixture
 def k3_table(monkeypatch):
-    """``build`` replaced by a library whose guided_wta_smem_bytes is the
-    mirror; the picker's cache cleared around the test."""
+    """``build`` replaced by a library whose guided_wta_smem_bytes reads
+    K3_SMEM; the picker's cache cleared around the test."""
     class Lib:
-        guided_wta_smem_bytes = staticmethod(k3_smem_bytes)
+        @staticmethod
+        def guided_wta_smem_bytes(radius, rows, size_d):
+            return K3_SMEM[radius, size_d][rows]
 
     monkeypatch.setattr(_kernels, "build", lambda *a: {"lib": Lib})
     _kernels.guided_wta_tile_rows.cache_clear()
@@ -72,10 +76,11 @@ def test_batch_size_never_enters():
 
 
 @pytest.mark.parametrize("radius,size_d,rows", [
-    (9, 16, 32), (9, 64, 32), (9, 128, 32), (20, 16, 16), (23, 16, 8), (1, 1, 32)])
+    (9, 16, 32), (9, 64, 32), (9, 128, 32), (20, 16, 16), (23, 16, 8), (1, 1, 32),
+    (99, 16, 16)])
 def test_k3_tile_rows(k3_table, radius, size_d, rows):
-    """K3: occupancy first, then the tallest; 32 rows at R=9 (288x384:
-    12 x 9 = 108 CTAs, 6 MP: 94 x 63 = 5,922), R=20 fits 16, R=23 8."""
+    """K3: occupancy first, then the tallest, whatever the frame (at R=9:
+    288x384 gets 12 x 9 = 108 CTAs, 6 MP 94 x 63 = 5,922)."""
     assert _kernels.guided_wta_tile_rows(radius, size_d) == rows
 
 
