@@ -360,16 +360,19 @@ def on_card(sc):
 def time_scene(name, sc, sc8, iters):
     """ms per frame (default, stream=True, dual D=16 and auto D=8 kernel
     paths, the plain path) and per kernel launch (K3 and K1 on the left
-    view, K4 and K5 forced at D=16, K2) with their plain versions, for
-    one frame size."""
+    view, K4 and K5 forced at D=16 and at D=8, K3 on the left view at D=8,
+    K2) with their plain versions, for one frame size."""
     left, right = on_card(sc)
     left8, right8 = on_card(sc8)
     cfg = DEFAULT_CONFIG
     gl = rgb_to_grayscale(left, cfg)
     gr = rgb_to_grayscale(right, cfg)
+    gl8 = rgb_to_grayscale(left8, CFG8)
+    gr8 = rgb_to_grayscale(right8, CFG8)
     dl = guided_wta_fused(gl, gr, cfg.d_min, cfg)[1]
     dr = guided_wta_fused(gr, gl, cfg.d_min_right, cfg)[1]
     k4, k5 = (dataclasses.replace(cfg, stream=s) for s in (False, True))
+    k4_d8, k5_d8 = (dataclasses.replace(CFG8, stream=s) for s in (False, True))
     few = max(2, iters // 4)
     t = {
         "frame_ms": cuda_ms(lambda: stereo_pipeline(left, right, cfg), iters),
@@ -383,6 +386,10 @@ def time_scene(name, sc, sc8, iters):
             lambda: guided_wta_fused_reference(gl, gr, cfg.d_min, cfg), few),
         "k4_ms": cuda_ms(lambda: guided_wta_fused_dual(gl, gr, k4), iters),
         "k5_ms": cuda_ms(lambda: guided_wta_fused_dual(gl, gr, k5), iters),
+        "k4_d8_ms": cuda_ms(lambda: guided_wta_fused_dual(gl8, gr8, k4_d8), iters),
+        "k5_d8_ms": cuda_ms(lambda: guided_wta_fused_dual(gl8, gr8, k5_d8), iters),
+        # one view: the single-view route at D=8 runs it twice
+        "k3_d8_ms": cuda_ms(lambda: guided_wta_fused(gl8, gr8, CFG8.d_min, CFG8), iters),
         "dual_plain_ms": cuda_ms(lambda: guided_wta_fused_dual_reference(gl, gr, cfg), few),
         "k2_ms": cuda_ms(lambda: lr_fill_fused(dl, dr, cfg), iters),
         "k2_plain_ms": cuda_ms(lambda: lr_fill_reference(dl, dr, cfg), iters),
@@ -512,7 +519,7 @@ def main() -> int:
     info = _kernels.build()
     print(f"build: {info['seconds']:.2f} s -> {info['path']}")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(key in line for key in ("entry function", "registers", "spill", "error")):
             print(f"  ptxas: {line.strip()}")
 
     sizes = {"288x384": (288, 384), "1992x3008": (1992, 3008)}
@@ -591,10 +598,12 @@ def main() -> int:
     profile_path("288x384 box", lambda: box_stereo_pipeline(left, right, DEFAULT_CONFIG), 20)
 
     shapes = {"288x384": (288, 384, 16), "1992x3008": (1992, 3008, 16),
+              "288x384 D=8": (288, 384, 8), "1992x3008 D=8": (1992, 3008, 8),
               "288x384 D=64": (288, 384, 64), "1988x2948 D=128": (1988, 2948, 128)}
     for kernel in ("K1", "K2", "K3", "K4", "K5"):
         for name, (h, w, d) in shapes.items():
-            if kernel in ("K1", "K3") or "D=" not in name:
+            if ("D=" not in name or kernel in ("K1", "K3") and d != 8
+                    or kernel in ("K3", "K4", "K5") and d == 8):
                 ms, by = bound(h, w, d, kernel)
                 print(f"bound {kernel} {name}: {ms:.5f} ms ({by})")
 

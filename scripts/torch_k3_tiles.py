@@ -31,13 +31,14 @@ SHAPES = ((288, 384, 16, 50), (1992, 3008, 16, 10), (288, 384, 64, 20),
           (1988, 2948, 128, 3))
 
 
-def k3_ptxas(log: str) -> list[str]:
-    """ptxas's register, shared-memory and spill lines of each K3 kernel."""
+def ptxas_lines(log: str, kernel: str = "guided_wta_kernel") -> list[str]:
+    """ptxas's register, shared-memory and spill lines of each kernel
+    function whose (mangled) name contains ``kernel``."""
     out, fn = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            fn = m.group(1) if "guided_wta_kernel" in m.group(1) else None
+            fn = m.group(1) if kernel in m.group(1) else None
         elif fn and ("registers" in line or "spill" in line):
             out.append(f"{fn}: {re.sub(r'^ptxas\s+info\s*:\s*', '', line.strip())}")
     return out
@@ -62,7 +63,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip())
     print(f"package {_kernels.__file__}")
     info = _kernels.build()
-    for line in k3_ptxas(info["log"]):
+    for line in ptxas_lines(info["log"]):
         print(f"ptxas {line}")
     lib = info["lib"]
     rng = np.random.default_rng(0)

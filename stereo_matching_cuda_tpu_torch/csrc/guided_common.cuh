@@ -5,6 +5,11 @@
 // the left and the right view's matching in one pass, from one raw cost
 // slice per disparity.
 //
+// Window sums.  K1 and the guide statistics of every kernel sum each
+// window directly, kRB at a time (window_sums, x_sums).  The box passes
+// of K3, K4 and K5 that run once per slice sum runs of kRun windows from
+// one direct seed (run_sums, x_runs).
+//
 // Dual-view kernels.  The raw slice.  For left label d the truncated AD + gradient cost at
 // global column x is raw(x) = F(I_l(x), I_r(x + d)).  The right view's
 // label -d at column x reads the same slice at x - d:
@@ -38,6 +43,13 @@ constexpr int kTileW = 32;       // output columns per CTA: one warp
 constexpr int kBlockY = 8;       // the block is kTileW x kBlockY threads
 constexpr int kThreads = kTileW * kBlockY;
 constexpr int kRB = 4;           // adjacent windows one thread sums at once
+// Windows per run of the sliding box passes: float runs of 8 beat 4, 12
+// and 16 and runs added in double on K3 (PERF.md, Findings, PR 5).
+constexpr int kRun = 8;
+
+// Block height of a TH-row tile (K3, K4): 16 (512 threads, two CTAs and
+// 32 warps per SM) where the tile has the rows, else 8.
+__host__ __device__ constexpr int block_rows(int TH) { return TH >= 16 ? 16 : 8; }
 
 struct Params {
   int H, W, dmin, D, R;
@@ -75,9 +87,9 @@ __device__ inline void window_sums(Load at, int k, int nv, Acc (&out)[RB]) {
   }
 }
 
-// The same over src[0], src[stride], src[2 * stride], ...: K1 and K4 ran
-// faster on this form, K5 on the loader form (PERF.md, Findings: the
-// shared header).
+// The same over src[0], src[stride], src[2 * stride], ...: K1 and K3 ran
+// faster on this form, K5 on the loader form (PERF.md, Findings, PR 2:
+// one header).
 template <int RB, typename Acc>
 __device__ inline void window_sums(const float* __restrict__ src, int stride,
                                    int k, int nv, Acc (&out)[RB]) {
@@ -120,11 +132,11 @@ __device__ inline void x_sums(const float* a, const float* b, int src_pitch,
 
 // x-window sums of two planes: da[r][c] = sum_j la(r, c + j) for r < rows,
 // c < cols.  Lanes walk rows (odd pitches: no bank conflicts).
-template <typename Acc, typename LA, typename LB>
+template <typename Acc, int NT, typename LA, typename LB>
 __device__ inline void x_sums(LA la, LB lb, float* da, float* db, int dst_pitch,
                               int rows, int cols, int k, int tid) {
   const int nblk = (cols + kRB - 1) / kRB;
-  for (int t = tid; t < rows * nblk; t += kThreads) {
+  for (int t = tid; t < rows * nblk; t += NT) {
     const int r = t % rows, c0 = (t / rows) * kRB;
     const int nv = min(kRB, cols - c0);
     Acc s1[kRB], s2[kRB];
@@ -136,6 +148,65 @@ __device__ inline void x_sums(LA la, LB lb, float* da, float* db, int dst_pitch,
         da[r * dst_pitch + c0 + i] = (float)s1[i];
         db[r * dst_pitch + c0 + i] = (float)s2[i];
       }
+  }
+}
+
+// One run of S adjacent windows of k values over two planes: window i
+// is a(i) + ... + a(i + k - 1) (and the same of b), for i < nv <= S.
+// The first window is summed directly; each next one adds the value that
+// enters and subtracts the one that leaves, which (for S - 1 <= k) is one
+// of the first window's own values, kept in registers.  So a run costs
+// k + S - 1 loads and k - 1 + 2(S - 1) adds per plane, and its error
+// grows by at most two roundings a window from a fresh direct sum.
+// emit(i, sum_a, sum_b) takes each window.  Reads nothing past window
+// nv - 1.  Where emit ignores sum_b, the compiler drops plane b.
+template <int S, typename LA, typename LB, typename Emit>
+__device__ inline void run_sums(LA a, LB b, int k, int nv, Emit emit) {
+  float la[S], lb[S];                   // the values that leave: j < S - 1
+  float sa = 0.f, sb = 0.f;
+#pragma unroll
+  for (int j = 0; j < S - 1; ++j) {
+    const bool need = j < k || j + 1 < nv;
+    la[j] = need ? a(j) : 0.f;
+    lb[j] = need ? b(j) : 0.f;
+    if (j < k) {
+      sa += la[j];
+      sb += lb[j];
+    }
+  }
+  for (int j = S - 1; j < k; ++j) {
+    sa += a(j);
+    sb += b(j);
+  }
+  emit(0, sa, sb);
+#pragma unroll
+  for (int i = 1; i < S; ++i) {
+    if (i >= nv) break;
+    sa += a(k + i - 1) - la[i - 1];
+    sb += b(k + i - 1) - lb[i - 1];
+    emit(i, sa, sb);
+  }
+}
+
+// x-window sums of two planes in runs of kRun: dst[r][c] = sum_j
+// src[r][c + j] for r < rows, c < cols.  Lanes walk rows (odd pitches:
+// no bank conflicts).
+template <int NT>
+__device__ inline void x_runs(const float* a, const float* b, int src_pitch,
+                              float* da, float* db, int dst_pitch,
+                              int rows, int cols, int k, int tid) {
+  const int nrun = (cols + kRun - 1) / kRun;
+  for (int t = tid; t < rows * nrun; t += NT) {
+    const int r = t % rows, c0 = (t / rows) * kRun;
+    const float* pa = a + r * src_pitch + c0;
+    const float* pb = b + r * src_pitch + c0;
+    float* qa = da + r * dst_pitch + c0;
+    float* qb = db + r * dst_pitch + c0;
+    run_sums<kRun>([&](int j) { return pa[j]; }, [&](int j) { return pb[j]; },
+                   k, min(kRun, cols - c0), [&](int i, float sa, float sb) {
+                     qa[i] = sa;
+                     qb[i] = sb;
+                   });
   }
 }
 

@@ -67,69 +67,6 @@ namespace {
 
 using namespace guided;
 
-// Windows per run of the sliding box passes: float runs of 8 beat 4, 12
-// and 16 and runs added in double (PERF.md, Findings, PR 5).
-constexpr int kRun = 8;
-
-// One run of S adjacent windows of k values over two planes: window i
-// is a(i) + ... + a(i + k - 1) (and the same of b), for i < nv <= S.
-// The first window is summed directly; each next one adds the value that
-// enters and subtracts the one that leaves, which (for S - 1 <= k) is one
-// of the first window's own values, kept in registers.  So a run costs
-// k + S - 1 loads and k - 1 + 2(S - 1) adds per plane, and its error
-// grows by at most two roundings a window from a fresh direct sum.
-// emit(i, sum_a, sum_b) takes each window.  Reads nothing past window
-// nv - 1.
-template <int S, typename LA, typename LB, typename Emit>
-__device__ inline void run_sums(LA a, LB b, int k, int nv, Emit emit) {
-  float la[S], lb[S];                   // the values that leave: j < S - 1
-  float sa = 0.f, sb = 0.f;
-#pragma unroll
-  for (int j = 0; j < S - 1; ++j) {
-    const bool need = j < k || j + 1 < nv;
-    la[j] = need ? a(j) : 0.f;
-    lb[j] = need ? b(j) : 0.f;
-    if (j < k) {
-      sa += la[j];
-      sb += lb[j];
-    }
-  }
-  for (int j = S - 1; j < k; ++j) {
-    sa += a(j);
-    sb += b(j);
-  }
-  emit(0, sa, sb);
-#pragma unroll
-  for (int i = 1; i < S; ++i) {
-    if (i >= nv) break;
-    sa += a(k + i - 1) - la[i - 1];
-    sb += b(k + i - 1) - lb[i - 1];
-    emit(i, sa, sb);
-  }
-}
-
-// x-window sums of two planes in runs of kRun: dst[r][c] = sum_j
-// src[r][c + j] for r < rows, c < cols.  Lanes walk rows (odd pitches:
-// no bank conflicts).
-template <int NT>
-__device__ inline void x_runs(const float* a, const float* b, int src_pitch,
-                              float* da, float* db, int dst_pitch,
-                              int rows, int cols, int k, int tid) {
-  const int nrun = (cols + kRun - 1) / kRun;
-  for (int t = tid; t < rows * nrun; t += NT) {
-    const int r = t % rows, c0 = (t / rows) * kRun;
-    const float* pa = a + r * src_pitch + c0;
-    const float* pb = b + r * src_pitch + c0;
-    float* qa = da + r * dst_pitch + c0;
-    float* qb = db + r * dst_pitch + c0;
-    run_sums<kRun>([&](int j) { return pa[j]; }, [&](int j) { return pb[j]; },
-                   k, min(kRun, cols - c0), [&](int i, float sa, float sb) {
-                     qa[i] = sa;
-                     qb[i] = sb;
-                   });
-  }
-}
-
 // Geometry of one CTA's shared-memory windows.  Pitches are odd.
 struct Geom {
   int P;        // 2R
@@ -163,10 +100,6 @@ __host__ inline size_t smem_bytes(int R, int TH, int D) {
   const size_t bytes = (size_t)g.ER * g.I1C + (size_t)g.ER * g.I2C;
   return floats * sizeof(float) + bytes;
 }
-
-// Block height of a TH-row tile: 16 (512 threads, two CTAs and 32 warps
-// per SM) where the tile has the rows, else 8.
-__host__ __device__ constexpr int block_rows(int TH) { return TH >= 16 ? 16 : 8; }
 
 template <int TH, int BY>
 __global__ void __launch_bounds__(kTileW * BY, 2)

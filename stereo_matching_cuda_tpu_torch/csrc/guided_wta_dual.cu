@@ -7,31 +7,36 @@
 //   guided_wta_fused_dual_reference (the two plain single-view calls), per
 //   view at the fused fast-path bound (near-tie label flips only).
 //
-// What it computes: for each view the function of K1 (guided_wta.cu),
+// What it computes: for each view the function of K3 (guided_wta.cu),
 // left labels d = dmin .. dmax against the right image, right labels
 // -d against the left image, with the tie rules and the shared raw slice
 // of guided_common.cuh.  A (B, H, W) batch rides blockIdx.z.
 //
-// Design.  As K1, one CTA owns a 32 x TH output tile and recomputes its
-// 2R halo; nothing is carried between CTAs.  It loads both uint8 windows
-// once (widened by the column reach of both views), computes each view's
-// guide statistics once, then per slice computes the raw slice once and
-// runs the two views' guided chains one after the other through the same
-// four work planes (K1's buffers).
+// Design.  K3's, with two views.  One CTA owns a 32 x TH output tile and
+// recomputes its 2R halo; nothing is carried between CTAs.  It loads
+// both uint8 windows once (widened by the column reach of both views),
+// computes each view's guide statistics once, then per slice computes
+// the raw slice once and runs the two views' guided chains one after the
+// other through the same four work planes (K3's buffers).  Each chain is
+// K3's: cost and I*cost, then box passes b, c and d in runs of kRun = 8
+// windows from one direct seed (run_sums), then pass e, each thread's own
+// TH/16 rows summed directly, and the WTA in registers.
 //
-// What bounds it on the H100.  As K1: shared-memory traffic and issue of
+// Block and tile.  A 16- or 32-row tile runs 32 x 16 = 512 threads at
+// __launch_bounds__(512, 2): two CTAs, 32 warps, per SM (at most 64
+// registers a thread); an 8-row tile keeps 32 x 8 (block_rows).
+//
+// What bounds it on the H100.  As K3: shared-memory latency and issue of
 // the box passes (4 per view and slice), scaled by the halo ratio
 // ((32+4R)(TH+4R)/(32 TH) for the cost: 4.5 at TH=32, 6.9 at TH=16),
 // against 2 bytes of input per pixel; the raw slice saves one of the two
 // cost evaluations per pixel and slice.  Shared memory decides how many
-// CTAs share an SM, and that decided the time more than the halo did:
-// with both views' mean_I and c in shared memory a TH=32 CTA took
-// ~139 KB (one CTA, 8 warps, per SM) and ran slower than TH=16 at two.
-// So the guide statistics (written once per CTA, read once per slice)
-// live in a per-CTA device scratch that stays in L2, and a CTA at R=9,
-// D=16 takes 99,416 bytes at TH=32: two CTAs per SM.  The wrapper sizes
-// the tile for two CTAs per SM (PERF.md, Findings: the dual-view tile
-// sweeps).
+// CTAs share an SM: with both views' mean_I and c in shared memory a
+// TH=32 CTA took ~139 KB (one CTA per SM) and ran slower than TH=16 at
+// two.  So the guide statistics (written once per CTA, read once per
+// slice) live in a per-CTA device scratch that stays in L2, and a CTA at
+// R=9, D=16 takes 99,416 bytes at TH=32: two CTAs per SM (PERF.md,
+// Findings, PR 2: shared memory, not the halo).
 
 #include "guided_common.cuh"
 
@@ -78,14 +83,15 @@ __host__ __device__ inline size_t guide_floats(int R, int TH) {
   return 4 * (size_t)g.MR * g.MC;
 }
 
-template <int TH>
-__global__ void __launch_bounds__(kThreads)
+template <int TH, int BY>
+__global__ void __launch_bounds__(kTileW * BY, 2)
 guided_wta_dual_kernel(const uint8_t* __restrict__ gray_l,
                        const uint8_t* __restrict__ gray_r,
                        float* __restrict__ best_l_out, float* __restrict__ dmap_l_out,
                        float* __restrict__ best_r_out, float* __restrict__ dmap_r_out,
                        float* scratch, Params p) {
-  constexpr int kRows = TH / kBlockY;   // output rows per thread
+  constexpr int NT = kTileW * BY;       // threads of the block
+  constexpr int kRows = TH / BY;        // output rows per thread
   extern __shared__ float smem[];
   const Geom g = geometry(p.R, TH, p.pos + p.neg);
   const int P = g.P, R = p.R, H = p.H, W = p.W;
@@ -112,7 +118,7 @@ guided_wta_dual_kernel(const uint8_t* __restrict__ gray_l,
   const int off[2] = {p.pos, p.neg};         // window column of E column c: c + 1 + off
 
   // Input windows, zero outside the image.
-  for (int r = ty; r < g.ER; r += kBlockY) {
+  for (int r = ty; r < g.ER; r += BY) {
     const int gy = ye + r;
     const bool row_in = gy >= 0 && gy < H;
 #pragma unroll
@@ -131,14 +137,14 @@ guided_wta_dual_kernel(const uint8_t* __restrict__ gray_l,
   // float), y-sums in double, rounded once (see guide_stats).
   for (int v = 0; v < 2; ++v) {
     const uint8_t* iw = win + v * g.ER * g.WC + 1 + off[v];
-    x_sums<float>([&](int r, int c) { return (float)iw[r * g.WC + c]; },
+    x_sums<float, NT>([&](int r, int c) { return (float)iw[r * g.WC + c]; },
                   [&](int r, int c) { const float x = iw[r * g.WC + c]; return x * x; },
                   buf2a, buf2b, g.PM, g.ER, g.MC, k, tid);
     __syncthreads();
     float* mean_v = guide + (2 * v) * g.MR * g.MC;
     float* c_v = mean_v + g.MR * g.MC;
     const int nblk = (g.MR + kRB - 1) / kRB;
-    for (int t = tid; t < g.MC * nblk; t += kThreads) {
+    for (int t = tid; t < g.MC * nblk; t += NT) {
       const int c = t % g.MC, r0 = (t / g.MC) * kRB;
       const int nv = min(kRB, g.MR - r0);
       double s1[kRB], s2[kRB];
@@ -177,7 +183,7 @@ guided_wta_dual_kernel(const uint8_t* __restrict__ gray_l,
       const int n = g.EC + abs(d);
       const uint8_t* wl = win;
       const uint8_t* wr = win + g.ER * g.WC;
-      for (int r = ty; r < g.ER; r += kBlockY)
+      for (int r = ty; r < g.ER; r += BY)
         for (int c = tx; c < n; c += kTileW) {
           const int j = jlo + c, gx = xe - p.pos + j;
           raw[r * g.PR + j] = raw_cost(wl + r * g.WC + j + 1, gx,
@@ -197,7 +203,7 @@ guided_wta_dual_kernel(const uint8_t* __restrict__ gray_l,
 
       // a. The view's cost and I*cost over E (zero outside the image,
       // the out-of-range class where its match column leaves [0, W)).
-      for (int r = ty; r < g.ER; r += kBlockY) {
+      for (int r = ty; r < g.ER; r += BY) {
         const int gy = ye + r;
         for (int c = tx; c < g.EC; c += kTileW) {
           const int gx = xe + c;
@@ -213,36 +219,34 @@ guided_wta_dual_kernel(const uint8_t* __restrict__ gray_l,
       }
       __syncthreads();
 
-      // b. x-window sums over (E rows) x (M columns).
-      x_sums<float>(buf1a, buf1b, g.PE, buf2a, buf2b, g.PM, g.ER, g.MC, k, tid);
+      // b. x-window sums over (E rows) x (M columns), in runs.
+      x_runs<NT>(buf1a, buf1b, g.PE, buf2a, buf2b, g.PM, g.ER, g.MC, k, tid);
       __syncthreads();
 
-      // c. y-window sums -> a, b over M (into buf1).
+      // c. y-window sums in runs down a column -> a, b over M (into buf1).
       {
-        const int nblk = (g.MR + kRB - 1) / kRB;
-        for (int t = tid; t < g.MC * nblk; t += kThreads) {
-          const int c = t % g.MC, r0 = (t / g.MC) * kRB;
-          const int nv = min(kRB, g.MR - r0);
-          float s1[kRB], s2[kRB];
-          window_sums<kRB>(buf2a + r0 * g.PM + c, g.PM, k, nv, s1);
-          window_sums<kRB>(buf2b + r0 * g.PM + c, g.PM, k, nv, s2);
-#pragma unroll
-          for (int i = 0; i < kRB; ++i) {
-            if (i >= nv) break;
-            const int r = r0 + i, gy = ym + r, gx = xm + c;
-            float a = 0.f, b = 0.f;
-            if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-              guided_ab(s1[i], s2[i], window_area(gy, gx, H, W, R),
-                        mean_v[r * g.MC + c], c_v[r * g.MC + c], a, b);
-            buf1a[r * g.PM + c] = a;
-            buf1b[r * g.PM + c] = b;
-          }
+        const int nrun = (g.MR + kRun - 1) / kRun;
+        for (int t = tid; t < g.MC * nrun; t += NT) {
+          const int c = t % g.MC, r0 = (t / g.MC) * kRun;
+          const float* pa = buf2a + r0 * g.PM + c;
+          const float* pb = buf2b + r0 * g.PM + c;
+          run_sums<kRun>(
+              [&](int j) { return pa[j * g.PM]; }, [&](int j) { return pb[j * g.PM]; }, k,
+              min(kRun, g.MR - r0), [&](int i, float s1, float s2) {
+                const int r = r0 + i, gy = ym + r, gx = xm + c;
+                float a = 0.f, b = 0.f;
+                if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                  guided_ab(s1, s2, window_area(gy, gx, H, W, R), mean_v[r * g.MC + c],
+                            c_v[r * g.MC + c], a, b);
+                buf1a[r * g.PM + c] = a;
+                buf1b[r * g.PM + c] = b;
+              });
         }
       }
       __syncthreads();
 
-      // d. x-window sums of a, b over (M rows) x (tile columns).
-      x_sums<float>(buf1a, buf1b, g.PM, buf2a, buf2b, kTileW + 1, g.MR, kTileW, k, tid);
+      // d. x-window sums of a, b over (M rows) x (tile columns), in runs.
+      x_runs<NT>(buf1a, buf1b, g.PM, buf2a, buf2b, kTileW + 1, g.MR, kTileW, k, tid);
       __syncthreads();
 
       // e. y-window sums -> q -> WTA in registers.  The next chain's (or
@@ -286,11 +290,12 @@ template <int TH>
 cudaError_t launch(const uint8_t* gl, const uint8_t* gr, float* const* outs,
                    float* scratch, int N, const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.R, TH, p.pos + p.neg);
+  constexpr int BY = block_rows(TH);
   cudaError_t err = cudaFuncSetAttribute(
-      guided_wta_dual_kernel<TH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      guided_wta_dual_kernel<TH, BY>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.W + kTileW - 1) / kTileW, (p.H + TH - 1) / TH, N);
-  guided_wta_dual_kernel<TH><<<grid, dim3(kTileW, kBlockY), smem, stream>>>(
+  guided_wta_dual_kernel<TH, BY><<<grid, dim3(kTileW, BY), smem, stream>>>(
       gl, gr, outs[0], outs[1], outs[2], outs[3], scratch, p);
   return cudaGetLastError();
 }

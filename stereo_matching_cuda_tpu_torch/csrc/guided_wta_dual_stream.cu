@@ -15,8 +15,8 @@
 // carries, per slice, 8 planes of 2R rows (cost and I*cost x-sums, a and
 // b x-sums, both views) between sequential grid steps.  On the H100 the
 // walk is a loop inside the block: one CTA owns 32 output columns over a
-// band of `band` rows and walks down it kStep rows at a time, keeping only
-// the last 2R + kStep rows of each x-sum in shared-memory rings, so the
+// band of `band` rows and walks down it STEP rows at a time, keeping only
+// the last 2R + STEP rows of each x-sum in shared-memory rings, so the
 // 2R y-halo is paid once per band, not once per tile.  Output rows lag
 // the input by 2R (a/b lag R behind the cost, q lags R behind a/b).
 //
@@ -27,21 +27,31 @@
 // over the band (computed once) in a per-CTA device scratch, and the
 // running (best, dmap) of both views in the output arrays themselves;
 // both are read back once per slice, from L2.  Each step of the walk:
-// (1) the raw slice of kStep new rows; (2) each view's masked cost and
+// (1) the raw slice of STEP new rows; (2) each view's masked cost and
 // I*cost; (3) their x-sums into ring X1; (4) y-sums over X1 -> a, b of
-// kStep rows; (5) their x-sums into ring X2; (6) y-sums over X2 ->
-// box(a), box(b) of kStep output rows; (7) q and the WTA update.  Every
-// window is summed directly (kRB windows at once).
+// STEP rows; (5) their x-sums into ring X2; (6) y-sums over X2 ->
+// box(a), box(b) of STEP output rows; (7) q and the WTA update.  Passes
+// 3-6 sum runs of kRun = 8 windows from one direct seed (run_sums): a
+// step's new windows down a column are one run per 8 rows (2R + 8 loads
+// where two direct blocks of 4 took 2(2R + 4)), and along x the runs
+// slide as in K3.  Passes 3, 5 and 6 take one plane per thread, pass 4
+// the two planes that make a and b.
+//
+// Block and step.  The kernel is built for 32 x BY threads (BY = 8 or 16)
+// and steps of STEP = 8 or 16 rows; the wrapper picks the shape and sizes
+// the band for its CTAs per SM (ops/_kernels.py).  A 512-thread block is
+// built for two CTAs per SM (at most 64 registers a thread), a 256-thread
+// one for three (80).
 //
 // What bounds it on the H100.  Shared-memory traffic and issue, as K4,
 // with the y halo ratio of the cost cut from (TH+4R)/TH to
 // (band+4R)/band and that of a/b from (TH+2R)/TH to (band+2R)/band, for
-// seven barriers per step of kStep rows.  Its shared memory is the step
-// buffers and the band's input windows: at R=9, D=16 75,544 bytes at
+// seven barriers per step.  Its shared memory is the step buffers and
+// the band's input windows: at R=9, D=16, 8-row steps, 75,544 bytes at
 // band=72, three CTAs (24 warps) per SM.  Keeping the band-sized planes
 // in shared memory instead capped the band at 24 rows for two CTAs per
-// SM and measured 1.5x slower; the wrapper sizes the band for three
-// CTAs per SM (PERF.md, Findings: the dual-view tile sweeps).
+// SM and measured 1.5x slower (PERF.md, Findings, PR 2: K5's strip
+// carry).
 
 #include "guided_common.cuh"
 
@@ -49,7 +59,6 @@ namespace {
 
 using namespace guided;
 
-constexpr int kStep = 8;             // rows one step of the walk adds
 constexpr int kPQ = kTileW + 1;      // pitch of the 32-column planes
 
 struct Geom {
@@ -60,11 +69,12 @@ struct Geom {
   int PR;       // pitch of the raw slice (>= EC + reach)
   int NR;       // cost rows of the band: band + 4R
   int MB;       // a/b rows of the band: band + 2R
-  int RING;     // rows of each x-sum ring: 2R + kStep
+  int RING;     // rows of each x-sum ring: 2R + step
   int walk;     // floats of the per-step buffers
 };
 
-__host__ __device__ inline Geom geometry(int R, int band, int reach) {
+// step: rows one step of the walk adds.
+__host__ __device__ inline Geom geometry(int R, int band, int reach, int step) {
   Geom g;
   g.P = 2 * R;
   g.EC = kTileW + 2 * g.P;
@@ -75,34 +85,44 @@ __host__ __device__ inline Geom geometry(int R, int band, int reach) {
   g.PR = (g.EC + reach) | 1;
   g.NR = band + 2 * g.P;
   g.MB = band + g.P;
-  g.RING = g.P + kStep;
-  const int walk = kStep * g.PR + 4 * kStep * g.PE + 4 * g.RING * g.PM
-                 + 4 * kStep * g.PM + 4 * g.RING * kPQ + 4 * kStep * kPQ;
+  g.RING = g.P + step;
+  const int walk = step * g.PR + 4 * step * g.PE + 4 * g.RING * g.PM
+                 + 4 * step * g.PM + 4 * g.RING * kPQ + 4 * step * kPQ;
   const int guide_tmp = 2 * g.NR * g.PM;     // guide x-sums, before the walk
   g.walk = walk > guide_tmp ? walk : guide_tmp;
   return g;
 }
 
-__host__ inline size_t smem_bytes(int R, int band, int reach) {
-  const Geom g = geometry(R, band, reach);
+__host__ inline size_t smem_bytes(int R, int band, int reach, int step) {
+  const Geom g = geometry(R, band, reach, step);
   return (size_t)g.walk * sizeof(float) + 2 * (size_t)g.NR * g.WC;
 }
 
 // Floats of one CTA's guide statistics in the scratch: mean_I, c of each
 // view over the band's M rows.
 __host__ __device__ inline size_t guide_floats(int R, int band) {
-  const Geom g = geometry(R, band, 0);
+  const Geom g = geometry(R, band, 0, 1);
   return 4 * (size_t)g.MB * g.MC;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The sum of one plane's run: run_sums over a plane of zeros beside it,
+// whose sums the compiler drops.
+template <typename L, typename Emit>
+__device__ inline void run_sums1(L a, int k, int nv, Emit emit) {
+  run_sums<kRun>(a, [](int) { return 0.f; }, k, nv,
+                 [&](int i, float sa, float) { emit(i, sa); });
+}
+
+template <int BY, int STEP>
+__global__ void __launch_bounds__(kTileW * BY, BY == 16 ? 2 : 3)
 guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
                               const uint8_t* __restrict__ gray_r,
                               float* __restrict__ best_l_out, float* __restrict__ dmap_l_out,
                               float* __restrict__ best_r_out, float* __restrict__ dmap_r_out,
                               float* scratch, Params p, int band) {
+  constexpr int NT = kTileW * BY;       // threads of the block
   extern __shared__ float smem[];
-  const Geom g = geometry(p.R, band, p.pos + p.neg);
+  const Geom g = geometry(p.R, band, p.pos + p.neg, STEP);
   const int P = g.P, R = p.R, H = p.H, W = p.W, RING = g.RING;
   const int k = 2 * R + 1;
   // This CTA's guide statistics (mean_l, c_l, mean_r, c_r: MB x MC), in
@@ -110,12 +130,12 @@ guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
   const size_t cta = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
   float* guide = scratch + cta * guide_floats(R, band);
   float* work = smem;
-  float* raw = work;                          // kStep x PR
-  float* cost = raw + kStep * g.PR;           // cost_l, I*cost_l, cost_r, I*cost_r: kStep x PE
-  float* x1 = cost + 4 * kStep * g.PE;        // their x-sums: 4 rings of RING x PM
-  float* ab = x1 + 4 * RING * g.PM;           // a_l, b_l, a_r, b_r: kStep x PM
-  float* x2 = ab + 4 * kStep * g.PM;          // their x-sums: 4 rings of RING x kPQ
-  float* qs = x2 + 4 * RING * kPQ;            // box(a), box(b) of each view: kStep x kPQ
+  float* raw = work;                          // STEP x PR
+  float* cost = raw + STEP * g.PR;            // cost_l, I*cost_l, cost_r, I*cost_r: STEP x PE
+  float* x1 = cost + 4 * STEP * g.PE;         // their x-sums: 4 rings of RING x PM
+  float* ab = x1 + 4 * RING * g.PM;           // a_l, b_l, a_r, b_r: STEP x PM
+  float* x2 = ab + 4 * STEP * g.PM;           // their x-sums: 4 rings of RING x kPQ
+  float* qs = x2 + 4 * RING * kPQ;            // box(a), box(b) of each view: STEP x kPQ
   float* gsum = work;                         // guide x-sums (2 x NR x PM), before the walk
   uint8_t* win = reinterpret_cast<uint8_t*>(work + g.walk);   // left, right: NR x WC
 
@@ -129,7 +149,7 @@ guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
   const int off[2] = {p.pos, p.neg};         // window column of E column c: c + 1 + off
 
   // Input windows of the whole band, zero outside the image.
-  for (int r = threadIdx.y; r < g.NR; r += kBlockY) {
+  for (int r = threadIdx.y; r < g.NR; r += BY) {
     const int gy = ye + r;
     const bool row_in = gy >= 0 && gy < H;
 #pragma unroll
@@ -152,7 +172,7 @@ guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
     float* sb = gsum + g.NR * g.PM;
     {
       const int nblk = (g.MC + kRB - 1) / kRB;
-      for (int t = tid; t < g.NR * nblk; t += kThreads) {
+      for (int t = tid; t < g.NR * nblk; t += NT) {
         const int r = t % g.NR, c0 = (t / g.NR) * kRB;
         const int nv = min(kRB, g.MC - c0);
         const uint8_t* src = iw + r * g.WC + c0;
@@ -171,7 +191,7 @@ guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
     float* mean_v = guide + (2 * v) * g.MB * g.MC;
     float* c_v = mean_v + g.MB * g.MC;
     const int nblk = (g.MB + kRB - 1) / kRB;
-    for (int t = tid; t < g.MC * nblk; t += kThreads) {
+    for (int t = tid; t < g.MC * nblk; t += NT) {
       const int c = t % g.MC, r0 = (t / g.MC) * kRB;
       const int nv = min(kRB, g.MB - r0);
       double s1[kRB], s2[kRB];
@@ -193,18 +213,18 @@ guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
 
   const uint8_t* wl = win;
   const uint8_t* wr = win + g.NR * g.WC;
-  const int nsteps = (g.NR + kStep - 1) / kStep;
+  const int nsteps = (g.NR + STEP - 1) / STEP;
   for (int s = 0; s < p.D; ++s) {
     const int d = p.dmin + s;
     const int jlo = p.pos + min(0, -d);     // raw columns of this slice: jlo .. jlo + nraw - 1
     const int nraw = g.EC + abs(d);
 
     for (int t = 0; t < nsteps; ++t) {
-      const int i0 = t * kStep;               // E row of the step's first new row
-      const int ns = min(kStep, g.NR - i0);
+      const int i0 = t * STEP;                // E row of the step's first new row
+      const int ns = min(STEP, g.NR - i0);
 
       // 1. The raw slice of the new rows (columns as in K4).
-      for (int e = tid; e < ns * nraw; e += kThreads) {
+      for (int e = tid; e < ns * nraw; e += NT) {
         const int lr = e / nraw, j = jlo + e % nraw, i = i0 + lr;
         const int gx = xe - p.pos + j;
         raw[lr * g.PR + j] = raw_cost(wl + i * g.WC + j + 1, gx,
@@ -215,7 +235,7 @@ guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
 
       // 2. Each view's cost and I*cost over E (zero outside the image,
       // the out-of-range class where its match column leaves [0, W)).
-      for (int e = tid; e < ns * g.EC; e += kThreads) {
+      for (int e = tid; e < ns * g.EC; e += NT) {
         const int lr = e / g.EC, c = e % g.EC, i = i0 + lr;
         const int gy = ye + i, gx = xe + c;
         const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
@@ -229,47 +249,36 @@ guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
             cv = (gx2 < 0 || gx2 >= W) ? p.oob
                                        : raw[lr * g.PR + c + p.pos - (v ? d : 0)];
           }
-          cost[(2 * v) * kStep * g.PE + lr * g.PE + c] = cv;
-          cost[(2 * v + 1) * kStep * g.PE + lr * g.PE + c] = iv * cv;
+          cost[(2 * v) * STEP * g.PE + lr * g.PE + c] = cv;
+          cost[(2 * v + 1) * STEP * g.PE + lr * g.PE + c] = iv * cv;
         }
       }
       __syncthreads();
 
-      // 3. x-sums of the four planes into ring X1 (slot = E row % RING).
+      // 3. x-sums of the four planes into ring X1 (slot = E row % RING),
+      // in runs, one plane per task.
       {
-        const int nblk = (g.MC + kRB - 1) / kRB;
-        for (int e = tid; e < ns * nblk * 2; e += kThreads) {
+        const int nrun = (g.MC + kRun - 1) / kRun;
+        for (int e = tid; e < ns * nrun * 4; e += NT) {
           const int lr = e % ns, rest = e / ns;
-          const int c0 = (rest % nblk) * kRB, v = rest / nblk;
-          const int nv = min(kRB, g.MC - c0);
-          const float* ca = cost + (2 * v) * kStep * g.PE + lr * g.PE + c0;
-          const float* cb = ca + kStep * g.PE;
-          float s1[kRB], s2[kRB];
-          window_sums<kRB>([&](int j) { return ca[j]; }, k, nv, s1);
-          window_sums<kRB>([&](int j) { return cb[j]; }, k, nv, s2);
-          const int slot = (i0 + lr) % RING;
-          float* da = x1 + (2 * v) * RING * g.PM + slot * g.PM + c0;
-          float* db = da + RING * g.PM;
-#pragma unroll
-          for (int i = 0; i < kRB; ++i)
-            if (i < nv) {
-              da[i] = s1[i];
-              db[i] = s2[i];
-            }
+          const int c0 = (rest % nrun) * kRun, pl = rest / nrun;
+          const float* src = cost + pl * STEP * g.PE + lr * g.PE + c0;
+          float* dst = x1 + pl * RING * g.PM + ((i0 + lr) % RING) * g.PM + c0;
+          run_sums1([&](int j) { return src[j]; }, k, min(kRun, g.MC - c0),
+                    [&](int i, float sx) { dst[i] = sx; });
         }
       }
       __syncthreads();
 
       // 4. a/b rows whose windows end in this step's rows: M row m needs
-      // E rows m .. m + 2R.
+      // E rows m .. m + 2R.  One run per 8 rows down a column.
       const int m_lo = max(0, i0 - P), m_hi = min(g.MB, i0 + ns - P);
       const int nm = m_hi - m_lo;
       if (nm > 0) {
-        const int nblk = (nm + kRB - 1) / kRB;
-        for (int e = tid; e < g.MC * nblk * 2; e += kThreads) {
+        const int nrun = (nm + kRun - 1) / kRun;
+        for (int e = tid; e < g.MC * nrun * 2; e += NT) {
           const int c = e % g.MC, rest = e / g.MC;
-          const int m0 = m_lo + (rest % nblk) * kRB, v = rest / nblk;
-          const int nv = min(kRB, m_hi - m0);
+          const int m0 = m_lo + (rest % nrun) * kRun, v = rest / nrun;
           const float* ra = x1 + (2 * v) * RING * g.PM + c;
           const float* rb = ra + RING * g.PM;
           const int slot0 = m0 % RING;
@@ -278,65 +287,58 @@ guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
             if (sl >= RING) sl -= RING;
             return plane[sl * g.PM];
           };
-          float s1[kRB], s2[kRB];
-          window_sums<kRB>([&](int j) { return ring(ra, j); }, k, nv, s1);
-          window_sums<kRB>([&](int j) { return ring(rb, j); }, k, nv, s2);
           const float* mean_v = guide + (2 * v) * g.MB * g.MC;
           const float* c_v = mean_v + g.MB * g.MC;
-#pragma unroll
-          for (int i = 0; i < kRB; ++i) {
-            if (i >= nv) break;
-            const int m = m0 + i, gy = ym + m, gx = xm + c;
-            float a = 0.f, b = 0.f;
-            if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-              guided_ab(s1[i], s2[i], window_area(gy, gx, H, W, R),
-                        mean_v[m * g.MC + c], c_v[m * g.MC + c], a, b);
-            ab[(2 * v) * kStep * g.PM + (m - m_lo) * g.PM + c] = a;
-            ab[(2 * v + 1) * kStep * g.PM + (m - m_lo) * g.PM + c] = b;
-          }
+          float* da = ab + (2 * v) * STEP * g.PM + (m0 - m_lo) * g.PM + c;
+          float* db = da + STEP * g.PM;
+          run_sums<kRun>(
+              [&](int j) { return ring(ra, j); }, [&](int j) { return ring(rb, j); }, k,
+              min(kRun, m_hi - m0), [&](int i, float s1, float s2) {
+                const int m = m0 + i, gy = ym + m, gx = xm + c;
+                float a = 0.f, b = 0.f;
+                if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                  guided_ab(s1, s2, window_area(gy, gx, H, W, R), mean_v[m * g.MC + c],
+                            c_v[m * g.MC + c], a, b);
+                da[i * g.PM] = a;
+                db[i * g.PM] = b;
+              });
         }
       }
       __syncthreads();
 
       // 5. x-sums of a, b over the tile columns into ring X2 (slot = M
-      // row % RING), one plane per task.
+      // row % RING), in runs, one plane per task.
       if (nm > 0) {
-        constexpr int nblk = kTileW / kRB;
-        for (int e = tid; e < nm * nblk * 4; e += kThreads) {
+        constexpr int nrun = kTileW / kRun;
+        for (int e = tid; e < nm * nrun * 4; e += NT) {
           const int lr = e % nm, rest = e / nm;
-          const int c0 = (rest % nblk) * kRB, pl = rest / nblk;
-          const float* src = ab + pl * kStep * g.PM + lr * g.PM + c0;
-          float sx[kRB];
-          window_sums<kRB>([&](int j) { return src[j]; }, k, kRB, sx);
+          const int c0 = (rest % nrun) * kRun, pl = rest / nrun;
+          const float* src = ab + pl * STEP * g.PM + lr * g.PM + c0;
           float* dst = x2 + pl * RING * kPQ + ((m_lo + lr) % RING) * kPQ + c0;
-#pragma unroll
-          for (int i = 0; i < kRB; ++i) dst[i] = sx[i];
+          run_sums1([&](int j) { return src[j]; }, k, kRun,
+                    [&](int i, float sx) { dst[i] = sx; });
         }
       }
       __syncthreads();
 
       // 6. y-sums over X2 -> box(a), box(b) of the output rows whose
       // windows end in this step's a/b rows: output row o needs M rows
-      // o .. o + 2R.
+      // o .. o + 2R.  One run per 8 rows down a column, one plane per task.
       const int o_lo = max(0, m_lo - P), o_hi = min(band, m_hi - P);
       const int nq = o_hi - o_lo;
       if (nq > 0) {
-        const int nblk = (nq + kRB - 1) / kRB;
-        for (int e = tid; e < kTileW * nblk * 4; e += kThreads) {
+        const int nrun = (nq + kRun - 1) / kRun;
+        for (int e = tid; e < kTileW * nrun * 4; e += NT) {
           const int c = e % kTileW, rest = e / kTileW;
-          const int o0 = o_lo + (rest % nblk) * kRB, pl = rest / nblk;
-          const int nv = min(kRB, o_hi - o0);
+          const int o0 = o_lo + (rest % nrun) * kRun, pl = rest / nrun;
           const float* plane = x2 + pl * RING * kPQ + c;
           const int slot0 = o0 % RING;
-          float sy[kRB];
-          window_sums<kRB>([&](int j) {
+          float* dst = qs + pl * STEP * kPQ + (o0 - o_lo) * kPQ + c;
+          run_sums1([&](int j) {
             int sl = slot0 + j;
             if (sl >= RING) sl -= RING;
             return plane[sl * kPQ];
-          }, k, nv, sy);
-#pragma unroll
-          for (int i = 0; i < kRB; ++i)
-            if (i < nv) qs[pl * kStep * kPQ + (o0 + i - o_lo) * kPQ + c] = sy[i];
+          }, k, min(kRun, o_hi - o0), [&](int i, float sy) { dst[i * kPQ] = sy; });
         }
       }
       __syncthreads();
@@ -346,7 +348,7 @@ guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
       // barrier after it: the next step writes raw, cost, X1, ab and X2
       // first and qs only after four barriers; each output has one owner
       // thread, the same in every slice.
-      for (int e = tid; e < nq * kTileW; e += kThreads) {
+      for (int e = tid; e < nq * kTileW; e += NT) {
         const int lr = e / kTileW, c = e % kTileW, o = o_lo + lr;
         const int gy = y0 + o, gx = x0 + c;
         if (gy >= H || gx >= W) continue;
@@ -355,7 +357,7 @@ guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
         const size_t q = frame + (size_t)gy * W + gx;
         const float il = (float)wl[wo + p.pos];
         const float ql = (qs[lr * kPQ + c] / area) * il
-                       + qs[kStep * kPQ + lr * kPQ + c] / area;
+                       + qs[STEP * kPQ + lr * kPQ + c] / area;
         const float bl = s ? best_l_out[q] : best_init();
         if (bl >= ql) {
           best_l_out[q] = ql;
@@ -365,8 +367,8 @@ guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
           dmap_l_out[q] = 0.f;
         }
         const float ir = (float)wr[wo + p.neg];
-        const float qr = (qs[2 * kStep * kPQ + lr * kPQ + c] / area) * ir
-                       + qs[3 * kStep * kPQ + lr * kPQ + c] / area;
+        const float qr = (qs[2 * STEP * kPQ + lr * kPQ + c] / area) * ir
+                       + qs[3 * STEP * kPQ + lr * kPQ + c] / area;
         const float br = s ? best_r_out[q] : best_init();
         if (br > qr) {
           best_r_out[q] = qr;
@@ -380,12 +382,27 @@ guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
   }
 }
 
+template <int BY, int STEP>
+cudaError_t launch(const uint8_t* gl, const uint8_t* gr, float* const* outs,
+                   float* scratch, int N, const Params& p, int band, cudaStream_t stream) {
+  const size_t smem = smem_bytes(p.R, band, p.pos + p.neg, STEP);
+  cudaError_t err = cudaFuncSetAttribute(guided_wta_dual_stream_kernel<BY, STEP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.W + kTileW - 1) / kTileW, (p.H + band - 1) / band, N);
+  guided_wta_dual_stream_kernel<BY, STEP><<<grid, dim3(kTileW, BY), smem, stream>>>(
+      gl, gr, outs[0], outs[1], outs[2], outs[3], scratch, p, band);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Dynamic shared memory K5 needs for a radius, a band height and the
-// column reach max(0, d_max) + max(0, -d_min) (bytes).
-extern "C" long long guided_wta_dual_stream_smem_bytes(int R, int band, int reach) {
-  return (long long)smem_bytes(R, band, reach);
+// Dynamic shared memory K5 needs for a radius, a band height, the column
+// reach max(0, d_max) + max(0, -d_min) and a step of `step` rows (bytes).
+extern "C" long long guided_wta_dual_stream_smem_bytes(int R, int band, int reach,
+                                                       int step) {
+  return (long long)smem_bytes(R, band, reach, step);
 }
 
 // Bytes of device scratch one K5 launch needs (the guide statistics of
@@ -398,30 +415,32 @@ extern "C" long long guided_wta_dual_stream_scratch_bytes(int R, int band, int N
 
 // Launches K5 on `stream`.  Arguments as guided_wta_dual_launch, with the
 // band height (output rows per CTA, >= 1) in place of the tile height,
-// and `scratch`: device memory of guided_wta_dual_stream_scratch_bytes.
+// the block height BY (8 or 16: 32 x BY threads) and the step (8 or 16
+// rows), and `scratch`: device memory of
+// guided_wta_dual_stream_scratch_bytes.
 extern "C" int guided_wta_dual_stream_launch(const void* gray_l, const void* gray_r,
                                              void* best_l, void* dmap_l,
                                              void* best_r, void* dmap_r,
                                              void* scratch,
                                              int N, int H, int W, int dmin, int D,
-                                             int R, int band, float one_m_alpha,
-                                             float alpha, float th_color,
-                                             float th_grad, float oob, double eps,
-                                             void* stream) {
+                                             int R, int band, int BY, int step,
+                                             float one_m_alpha, float alpha,
+                                             float th_color, float th_grad, float oob,
+                                             double eps, void* stream) {
   if (band < 1) return (int)cudaErrorInvalidValue;
   const Params p = make_params(H, W, dmin, D, R, one_m_alpha, alpha, th_color,
                                th_grad, oob, eps);
-  const size_t smem = smem_bytes(R, band, p.pos + p.neg);
-  cudaError_t err = cudaFuncSetAttribute(
-      guided_wta_dual_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + band - 1) / band, N);
-  guided_wta_dual_stream_kernel<<<grid, dim3(kTileW, kBlockY), smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(gray_l), static_cast<const uint8_t*>(gray_r),
-      static_cast<float*>(best_l), static_cast<float*>(dmap_l),
-      static_cast<float*>(best_r), static_cast<float*>(dmap_r),
-      static_cast<float*>(scratch), p, band);
-  return (int)cudaGetLastError();
+  const auto* gl = static_cast<const uint8_t*>(gray_l);
+  const auto* gr = static_cast<const uint8_t*>(gray_r);
+  float* outs[4] = {static_cast<float*>(best_l), static_cast<float*>(dmap_l),
+                    static_cast<float*>(best_r), static_cast<float*>(dmap_r)};
+  auto* sc = static_cast<float*>(scratch);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (BY * 100 + step) {
+    case 808: return (int)launch<8, 8>(gl, gr, outs, sc, N, p, band, st);
+    case 816: return (int)launch<8, 16>(gl, gr, outs, sc, N, p, band, st);
+    case 1608: return (int)launch<16, 8>(gl, gr, outs, sc, N, p, band, st);
+    case 1616: return (int)launch<16, 16>(gl, gr, outs, sc, N, p, band, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

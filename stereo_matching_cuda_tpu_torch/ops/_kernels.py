@@ -8,9 +8,14 @@
                                 of those that fit the most CTAs per SM
                                 (guided_wta_tile_rows); 512-thread
                                 blocks, 256 for 8 rows
-  K4 guided_wta_dual.cu         both views in one pass, tiled (guided_wta_dual)
+  K4 guided_wta_dual.cu         both views in one pass, tiled
+                                (guided_wta_dual): K3's tiles, blocks and
+                                tile rule (guided_wta_dual_tile_rows)
   K5 guided_wta_dual_stream.cu  both views, row walk down a band
-                                (guided_wta_dual_stream)
+                                (guided_wta_dual_stream): 512-thread
+                                blocks at two CTAs per SM, 16-row steps
+                                where they fit (8 else), bands of at
+                                most 96 rows
 
 The sources have a plain C interface.  At first use each is compiled by
 its own ``nvcc`` for ``sm_90a`` (all started together), and the objects
@@ -59,8 +64,9 @@ _SIGNATURES = {
     "guided_wta_dual_launch": (_I, [_P] * 7 + _LAUNCH_ARGS),
     "guided_wta_dual_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     "guided_wta_dual_scratch_bytes": (ctypes.c_longlong, [_I] * 5),
-    "guided_wta_dual_stream_launch": (_I, [_P] * 7 + _LAUNCH_ARGS),
-    "guided_wta_dual_stream_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
+    "guided_wta_dual_stream_launch": (_I, [_P] * 7 + [_I] * 9 + [_F] * 5
+                                      + [ctypes.c_double, _P]),
+    "guided_wta_dual_stream_smem_bytes": (ctypes.c_longlong, [_I] * 4),
     "guided_wta_dual_stream_scratch_bytes": (ctypes.c_longlong, [_I] * 5),
 }
 
@@ -144,13 +150,13 @@ _SMEM_PER_SM = 233_472
 _SMEM_RESERVED_PER_BLOCK = 1_024
 
 # CTAs per SM each kernel's tile or band is sized for: occupancy first,
-# then height (PERF.md, Findings: PR 2 for K4 and K5, PR 5 for K3).
-# K3's 512-thread block is built for two (``__launch_bounds__(512, 2)``:
-# at most 64 registers a thread), and so is its 256-thread block of
-# 8-row tiles.
+# then height (PERF.md, Findings: PR 5 for K3, PR 6 for K4 and K5).
+# The 512-thread blocks of K3, K4 and K5 are built for two
+# (``__launch_bounds__(512, 2)``: at most 64 registers a thread), and so
+# are K3's and K4's 256-thread blocks of 8-row tiles.
 _K3_CTAS_PER_SM = 2
 _K4_CTAS_PER_SM = 2
-_K5_CTAS_PER_SM = 3
+_K5_CTAS_PER_SM = 2
 
 
 def smem_ctas_per_sm(smem: int) -> int:
@@ -187,6 +193,16 @@ def _n_sm(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _tallest_fullest(smem_by_rows: dict, per_sm: int, what: str) -> int:
+    """Of {rows: shared-memory bytes}, tallest first: occupancy first (up
+    to ``per_sm`` CTAs per SM), then the tallest; ``what`` names the
+    launch in the error raised when none fits one block."""
+    rows = _fullest_rows(smem_by_rows, per_sm)
+    if not rows:
+        raise ValueError(f"{what} needs more shared memory than one block has")
+    return rows[0]
+
+
 @functools.lru_cache(maxsize=None)
 def guided_wta_tile_rows(radius: int, size_d: int) -> int:
     """K3's output tile height, of 32, 16 and 8: occupancy first (up to
@@ -194,12 +210,9 @@ def guided_wta_tile_rows(radius: int, size_d: int) -> int:
     batch enters: with 16 warps a block, a 32-row tile's smaller halo
     beat 16-row tiles that fill every SM (PERF.md, Findings, PR 5)."""
     lib = build()["lib"]
-    rows = _fullest_rows({th: lib.guided_wta_smem_bytes(radius, th, size_d)
-                          for th in (32, 16, 8)}, _K3_CTAS_PER_SM)
-    if not rows:
-        raise ValueError(f"radius {radius} with {size_d} disparities needs more "
-                         "shared memory than one block has")
-    return rows[0]
+    return _tallest_fullest({th: lib.guided_wta_smem_bytes(radius, th, size_d)
+                             for th in (32, 16, 8)}, _K3_CTAS_PER_SM,
+                            f"radius {radius} with {size_d} disparities")
 
 
 def guided_wta(gray1, gray2, best, dmap, dmin, size_d, radius, constants,
@@ -219,16 +232,16 @@ def guided_wta(gray1, gray2, best, dmap, dmin, size_d, radius, constants,
 
 
 @functools.lru_cache(maxsize=None)
-def guided_wta_dual_tile_rows(radius: int, reach: int, h: int, w: int,
-                              n_sm: int) -> int:
-    """K4's output tile height, of 32, 16 and 8 (``_pick_rows``)."""
+def guided_wta_dual_tile_rows(radius: int, reach: int) -> int:
+    """K4's output tile height, of 32, 16 and 8, by K3's rule: occupancy
+    first (up to ``_K4_CTAS_PER_SM``), then the tallest, whatever the
+    frame.  With 512-thread blocks the 32-row tile beat the 16-row one
+    at 288x384 too, though its 108 CTAs leave SMs idle (PERF.md,
+    Findings, PR 6)."""
     lib = build()["lib"]
-    th = _pick_rows({th: lib.guided_wta_dual_smem_bytes(radius, th, reach)
-                     for th in (32, 16, 8)}, _K4_CTAS_PER_SM, h, w, n_sm)
-    if th is None:
-        raise ValueError(f"radius {radius} with column reach {reach} needs more "
-                         "shared memory than one block has (dual-view kernel)")
-    return th
+    return _tallest_fullest({th: lib.guided_wta_dual_smem_bytes(radius, th, reach)
+                             for th in (32, 16, 8)}, _K4_CTAS_PER_SM,
+                            f"radius {radius} with column reach {reach} (dual-view kernel)")
 
 
 # K1 and K5 band heights, tallest first (a taller band pays its 4R
@@ -273,20 +286,41 @@ def guided_wta_stream(gray1, gray2, best, dmap, dmin, size_d, radius,
     _check(err, "guided_wta_stream_launch")
 
 
+# K5's block height (32 x 16 threads), its steps (rows the walk adds at
+# a time), tried in this order, and its bands.  16-row steps on
+# 512-thread blocks ran 20% faster than PR 5's 8-row steps on 256 threads
+# at 6 MP; above 96 rows the bands ran ~4% slower (PERF.md, Findings,
+# PR 6).  8-row steps take less shared memory, so radii up to 31 still
+# fit at R=9's reach where 16-row steps stop at 25.
+_K5_BLOCK_ROWS = 16
+_K5_STEPS = (16, 8)
+_K5_MAX_BAND = 96
+_K5_BANDS = tuple(b for b in _BANDS if b <= _K5_MAX_BAND)
+
+
 @functools.lru_cache(maxsize=None)
+def guided_wta_dual_stream_step(radius: int, reach: int) -> int | None:
+    """K5's step: the first of ``_K5_STEPS`` whose lowest band fits one
+    block's shared memory; None if none does."""
+    lib = build()["lib"]
+    return next((step for step in _K5_STEPS
+                 if lib.guided_wta_dual_stream_smem_bytes(radius, _K5_BANDS[-1], reach, step)
+                 <= _SMEM_LIMIT), None)
+
+
 def dual_stream_fits(radius: int, reach: int) -> bool:
     """Whether K5 fits one block's shared memory at its lowest band."""
-    return build()["lib"].guided_wta_dual_stream_smem_bytes(
-        radius, _BANDS[-1], reach) <= _SMEM_LIMIT
+    return guided_wta_dual_stream_step(radius, reach) is not None
 
 
 @functools.lru_cache(maxsize=None)
 def guided_wta_dual_stream_band_rows(radius: int, reach: int, h: int, w: int,
-                                     n_sm: int) -> int:
-    """K5's band height, of 128, 120, .., 8 (``_pick_rows``)."""
+                                     n_sm: int, step: int) -> int:
+    """K5's band height, of 96, 88, .., 8 (``_pick_rows``), for steps of
+    ``step`` rows."""
     lib = build()["lib"]
-    band = _pick_rows({b: lib.guided_wta_dual_stream_smem_bytes(radius, b, reach)
-                       for b in _BANDS}, _K5_CTAS_PER_SM, h, w, n_sm)
+    band = _pick_rows({b: lib.guided_wta_dual_stream_smem_bytes(radius, b, reach, step)
+                       for b in _K5_BANDS}, _K5_CTAS_PER_SM, h, w, n_sm)
     if band is None:
         raise ValueError(f"radius {radius} with column reach {reach} needs "
                          "more shared memory than one block has (dual-view "
@@ -294,44 +328,54 @@ def guided_wta_dual_stream_band_rows(radius: int, reach: int, h: int, w: int,
     return band
 
 
-def _dual_launch(name, rows, gray_l, gray_r, outs, dmin, size_d, radius,
+def _dual_launch(name, shape, gray_l, gray_r, outs, dmin, size_d, radius,
                  constants, eps) -> None:
     """Launch `name`_launch with a scratch of `name`_scratch_bytes (the
-    CTAs' guide statistics, which stay in L2).  The scratch is freed on
+    CTAs' guide statistics, which stay in L2).  ``shape``: the launch
+    shape's ints, tile or band rows first.  The scratch is freed on
     return while the kernel may still run: the caching allocator hands
     it out again only to work queued after it on the same stream."""
     lib = build()["lib"]
     n, h, w = gray_l.shape
-    scratch = torch.empty(getattr(lib, f"{name}_scratch_bytes")(radius, rows, n, h, w),
+    scratch = torch.empty(getattr(lib, f"{name}_scratch_bytes")(radius, shape[0], n, h, w),
                           dtype=torch.uint8, device=gray_l.device)
     err = getattr(lib, f"{name}_launch")(
         gray_l.data_ptr(), gray_r.data_ptr(), *(o.data_ptr() for o in outs),
-        scratch.data_ptr(), n, h, w, dmin, size_d, radius, rows, *constants,
+        scratch.data_ptr(), n, h, w, dmin, size_d, radius, *shape, *constants,
         float(eps), _stream(gray_l))
     _check(err, f"{name}_launch")
 
 
 def guided_wta_dual(gray_l, gray_r, outs, dmin, size_d, radius, constants,
-                    eps) -> None:
+                    eps, tile_rows=None) -> None:
     """Launch K4 (csrc/guided_wta_dual.cu) on the current stream.
     gray_l/gray_r: uint8 (N, H, W); outs: best_l, dmap_l, best_r, dmap_r
-    float32 (N, H, W)."""
-    _, h, w = gray_l.shape
-    th = guided_wta_dual_tile_rows(radius, dual_reach(dmin, size_d), h, w,
-                                   _n_sm(gray_l.device))
-    _dual_launch("guided_wta_dual", th, gray_l, gray_r, outs, dmin, size_d,
+    float32 (N, H, W).  ``tile_rows`` (32, 16 or 8) defaults to
+    ``guided_wta_dual_tile_rows``; it is set only to test or measure the
+    other tile heights."""
+    th = tile_rows or guided_wta_dual_tile_rows(radius, dual_reach(dmin, size_d))
+    _dual_launch("guided_wta_dual", (th,), gray_l, gray_r, outs, dmin, size_d,
                  radius, constants, eps)
 
 
 def guided_wta_dual_stream(gray_l, gray_r, outs, dmin, size_d, radius,
-                           constants, eps) -> None:
+                           constants, eps, band=None, block_rows=None,
+                           step=None) -> None:
     """Launch K5 (csrc/guided_wta_dual_stream.cu) on the current stream;
-    arguments as guided_wta_dual."""
+    arguments as guided_wta_dual.  ``block_rows`` (8 or 16) defaults to
+    ``_K5_BLOCK_ROWS``, ``step`` (8 or 16) to
+    ``guided_wta_dual_stream_step`` and ``band`` to
+    ``guided_wta_dual_stream_band_rows``; they are set only to test or
+    measure other shapes of the kernel."""
     _, h, w = gray_l.shape
-    band = guided_wta_dual_stream_band_rows(radius, dual_reach(dmin, size_d),
-                                            h, w, _n_sm(gray_l.device))
-    _dual_launch("guided_wta_dual_stream", band, gray_l, gray_r, outs, dmin,
-                 size_d, radius, constants, eps)
+    reach = dual_reach(dmin, size_d)
+    block_rows = block_rows or _K5_BLOCK_ROWS
+    step = step or guided_wta_dual_stream_step(radius, reach) or _K5_STEPS[-1]
+    if band is None:
+        band = guided_wta_dual_stream_band_rows(radius, reach, h, w,
+                                                _n_sm(gray_l.device), step)
+    _dual_launch("guided_wta_dual_stream", (band, block_rows, step), gray_l, gray_r,
+                 outs, dmin, size_d, radius, constants, eps)
 
 
 def lr_fill(dl, dr, occ, filled, dmin, size_d, d_lr, d_occlusion,

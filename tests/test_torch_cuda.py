@@ -274,3 +274,99 @@ def test_k3_batch_equals_per_frame_on_16_row_tiles(dev):
     for i, (a, b) in enumerate(pairs):
         for j, t in enumerate(guided_wta_fused(a, b, cfg.d_min, cfg)):
             assert torch.equal(outs[j][i], t), (i, j)
+
+
+def _dual_at(g1, g2, cfg, **shape):
+    """K4 (``tile_rows``) or K5 (``band``, ``block_rows``, ``step``) at one
+    launch shape: uint8 (H, W) or (B, H, W) x2 -> (best_l, dmap_l, best_r,
+    dmap_r)."""
+    from stereo_matching_cuda_tpu_torch.ops import _kernels
+    from stereo_matching_cuda_tpu_torch.ops.cost import cost_constants
+
+    a, b = (g.reshape(-1, *g.shape[-2:]) for g in (g1, g2))
+    outs = [torch.empty(a.shape, dtype=torch.float32, device=a.device) for _ in range(4)]
+    launch = _kernels.guided_wta_dual if "tile_rows" in shape else _kernels.guided_wta_dual_stream
+    launch(a, b, outs, cfg.d_min, cfg.size_d, cfg.radius, cost_constants(cfg), cfg.eps,
+           **shape)
+    return tuple(o.reshape(g1.shape) for o in outs)
+
+
+def _assert_dual_bound(g1, g2, cfg, shapes):
+    ref = guided_wta_fused_dual_reference(g1, g2, cfg)
+    for shape in shapes:
+        outs = _dual_at(g1, g2, cfg, **shape)
+        for v in (0, 2):
+            mism = int((outs[v + 1] != ref[v + 1]).sum())
+            assert mism <= max(4, 2e-3 * g1.numel()), (shape, v, mism)
+            torch.testing.assert_close(outs[v], ref[v], atol=2e-3, rtol=1e-4,
+                                       msg=f"{shape} view {v}")
+
+
+def _k4_tiles(cfg):
+    """K4's tile heights whose shared memory fits one block."""
+    from stereo_matching_cuda_tpu_torch.ops import _kernels
+
+    lib = _kernels.build()["lib"]
+    reach = _kernels.dual_reach(cfg.d_min, cfg.size_d)
+    return [th for th in (32, 16, 8)
+            if lib.guided_wta_dual_smem_bytes(cfg.radius, th, reach) <= _kernels._SMEM_LIMIT]
+
+
+K5_SHAPES = [(by, step) for by in (8, 16) for step in (8, 16)]
+
+
+@pytest.mark.parametrize("h,w", [(1, 40), (17, 31), (33, 33), (64, 65), (40, 97)])
+def test_k4_tile_edges(dev, h, w):
+    """Frames that straddle the tile (32 columns; 32, 16, 8 rows) and the
+    window runs, at every tile height (512-thread blocks for 32 and 16)."""
+    g1, g2 = _pair(h, w, h * w + 1, dev)
+    _assert_dual_bound(g1, g2, DEFAULT_CONFIG, [{"tile_rows": th} for th in (32, 16, 8)])
+
+
+@pytest.mark.parametrize("h,band", [(37, 8), (53, 24), (61, 16), (101, 40), (29, 112)])
+def test_k5_band_edges(dev, h, band):
+    """Heights that are a multiple of neither the step nor the band, at
+    every block height and step."""
+    g1, g2 = _pair(h, 70, h + band, dev)
+    _assert_dual_bound(g1, g2, DEFAULT_CONFIG,
+                       [{"band": band, "block_rows": by, "step": step}
+                        for by, step in K5_SHAPES])
+
+
+@pytest.mark.parametrize("radius", [1, "largest"])
+def test_dual_radius_extremes(dev, radius):
+    """R=1, and the largest radius whose smallest tile (K4) or band (K5)
+    fits one block, at every tile height and K5 shape that fits."""
+    from stereo_matching_cuda_tpu_torch.ops import _kernels
+
+    lib = _kernels.build()["lib"]
+    reach = _kernels.dual_reach(DEFAULT_CONFIG.d_min, DEFAULT_CONFIG.size_d)
+    k4_max = max(r for r in range(1, 40)
+                 if lib.guided_wta_dual_smem_bytes(r, 8, reach) <= _kernels._SMEM_LIMIT)
+    for by, step in K5_SHAPES:
+        r5 = radius if radius == 1 else max(
+            r for r in range(1, 40)
+            if lib.guided_wta_dual_stream_smem_bytes(r, 8, reach, step) <= _kernels._SMEM_LIMIT)
+        cfg = dataclasses.replace(DEFAULT_CONFIG, radius=r5)
+        g1, g2 = _pair(50, 90, r5 + by + step, dev)
+        _assert_dual_bound(g1, g2, cfg, [{"band": 8, "block_rows": by, "step": step}])
+    cfg = dataclasses.replace(DEFAULT_CONFIG, radius=1 if radius == 1 else k4_max)
+    tiles = _k4_tiles(cfg)
+    assert tiles == ([32, 16, 8] if radius == 1 else [8]), tiles
+    g1, g2 = _pair(50, 90, cfg.radius, dev)
+    _assert_dual_bound(g1, g2, cfg, [{"tile_rows": th} for th in tiles])
+
+
+@pytest.mark.parametrize("shape", [{"tile_rows": 32}, {"tile_rows": 16},
+                                   {"band": 24, "block_rows": 16, "step": 16},
+                                   {"band": 24, "block_rows": 8, "step": 8}],
+                         ids=["K4-32", "K4-16", "K5-16x16", "K5-8x8"])
+def test_dual_batch_equals_per_frame_at_each_block(dev, shape):
+    """A B=3 batch at 512-thread blocks (and K5's 256-thread one) equals
+    per-frame launches bit for bit."""
+    pairs = [_pair(70, 100, s, dev) for s in (7, 8, 9)]
+    batch = _dual_at(torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs]),
+                     DEFAULT_CONFIG, **shape)
+    for i, (a, b) in enumerate(pairs):
+        for j, t in enumerate(_dual_at(a, b, DEFAULT_CONFIG, **shape)):
+            assert torch.equal(batch[j][i], t), (shape, i, j)

@@ -1,8 +1,9 @@
 """The kernels' launch-shape choice on the CPU, with no card and no CUDA
-toolkit: ``_kernels._pick_rows`` (K1, K4, K5) and K3's tile height
-(``guided_wta_tile_rows``) on synthetic {rows: shared-memory bytes}
-tables.  tests/test_torch_cuda.py checks K3's picks with the real
-``guided_wta_smem_bytes`` on a card."""
+toolkit: ``_kernels._pick_rows`` (K1, K5), K3's and K4's tile heights
+(``guided_wta_tile_rows``, ``guided_wta_dual_tile_rows``) and K5's step
+and band on synthetic {rows: shared-memory bytes} tables.
+tests/test_torch_cuda.py checks the picks with the real shared-memory
+functions on a card."""
 
 import inspect
 
@@ -73,6 +74,9 @@ def test_batch_size_never_enters():
         "smem_by_rows", "per_sm", "h", "w", "n_sm", "tile_w"]
     assert list(inspect.signature(_kernels.guided_wta_tile_rows).parameters) == [
         "radius", "size_d"]
+    assert list(inspect.signature(_kernels.guided_wta_dual_tile_rows).parameters) == [
+        "radius", "reach"]
+    assert "n" not in inspect.signature(_kernels.guided_wta_dual_stream_band_rows).parameters
 
 
 @pytest.mark.parametrize("radius,size_d,rows", [
@@ -87,3 +91,77 @@ def test_k3_tile_rows(k3_table, radius, size_d, rows):
 def test_k3_tile_rows_raises_when_nothing_fits(k3_table):
     with pytest.raises(ValueError, match="shared memory"):
         _kernels.guided_wta_tile_rows(40, 16)
+
+
+# K4's shared memory (bytes, rounded) at column reach 15 (16
+# disparities): every tile at two CTAs per SM (R=1, 9), 16 and 8 rows at
+# two (R=12), 16 and 8 at one (R=20), 8 rows alone (R=22), none (R=23).
+K4_SMEM = {1: {32: 32_000, 16: 18_000, 8: 11_000},
+           9: {32: 99_000, 16: 76_000, 8: 64_000},
+           12: {32: 134_000, 16: 107_000, 8: 94_000},
+           20: {32: 252_000, 16: 216_000, 8: 198_000},
+           22: {32: 288_000, 16: 249_000, 8: 230_000},
+           23: {32: 306_000, 16: 267_000, 8: 247_000}}
+# K5's shared memory at reach 15 is about base + 170 bytes a band row;
+# {(radius, step): base}, rounded: 16-row steps fit one block up to R=25,
+# 8-row steps up to R=31.
+K5_BASE = {(9, 16): 96_300, (9, 8): 63_300, (25, 16): 226_500, (25, 8): 175_000,
+           (31, 16): 288_000, (31, 8): 229_600, (32, 16): 299_000, (32, 8): 239_400}
+
+
+@pytest.fixture
+def dual_tables(monkeypatch):
+    """``build`` replaced by a library whose K4 and K5 shared-memory
+    functions read K4_SMEM and K5_BASE; the pickers' caches cleared."""
+    class Lib:
+        @staticmethod
+        def guided_wta_dual_smem_bytes(radius, rows, reach):
+            return K4_SMEM[radius][rows]
+
+        @staticmethod
+        def guided_wta_dual_stream_smem_bytes(radius, band, reach, step):
+            return K5_BASE[radius, step] + 170 * band
+
+    pickers = (_kernels.guided_wta_dual_tile_rows, _kernels.guided_wta_dual_stream_step,
+               _kernels.guided_wta_dual_stream_band_rows)
+    monkeypatch.setattr(_kernels, "build", lambda *a: {"lib": Lib})
+    for f in pickers:
+        f.cache_clear()
+    yield
+    for f in pickers:
+        f.cache_clear()
+
+
+@pytest.mark.parametrize("radius,rows", [(1, 32), (9, 32), (12, 16), (20, 16), (22, 8)])
+def test_k4_tile_rows(dual_tables, radius, rows):
+    """K4 takes K3's rule: occupancy first, then the tallest, whatever the
+    frame (at R=9, 32 rows at 288x384 too: 108 CTAs)."""
+    assert _kernels.guided_wta_dual_tile_rows(radius, 15) == rows
+
+
+def test_k4_tile_rows_raises_when_nothing_fits(dual_tables):
+    with pytest.raises(ValueError, match="shared memory"):
+        _kernels.guided_wta_dual_tile_rows(23, 15)
+
+
+@pytest.mark.parametrize("radius,step", [(9, 16), (25, 16), (31, 8), (32, None)])
+def test_k5_step(dual_tables, radius, step):
+    """16-row steps where the lowest band fits one block, else 8; K5 fits
+    (the automatic dual route may take it) wherever either does."""
+    assert _kernels.guided_wta_dual_stream_step(radius, 15) == step
+    assert _kernels.dual_stream_fits(radius, 15) == (step is not None)
+
+
+@pytest.mark.parametrize("step", [16, 8])
+@pytest.mark.parametrize("hw,band", [(BIG, 96), (SMALL, 24), ((4096, 4096), 96),
+                                     ((64, 64), 8)])
+def test_k5_band_rows(dual_tables, step, hw, band):
+    """At R=9 every band of 128 rows or fewer fits two CTAs per SM; the
+    bands stop at 96, and the tallest of those that still gives the frame
+    a CTA per SM wins (288x384: 12 x 12 = 144 CTAs at 24 rows)."""
+    assert _kernels.guided_wta_dual_stream_band_rows(9, 15, *hw, N_SM, step) == band
+
+
+def test_k5_band_rows_raises_when_nothing_fits(dual_tables):
+    with pytest.raises(ValueError, match="shared memory"):
+        _kernels.guided_wta_dual_stream_band_rows(32, 15, *BIG, N_SM, 8)
