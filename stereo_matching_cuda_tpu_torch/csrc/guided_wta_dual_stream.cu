@@ -255,41 +255,30 @@ guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
       }
       __syncthreads();
 
-      // 3. x-sums of the four planes into ring X1 (slot = E row % RING).
+      // 3. x-sums of the four planes into ring X1 (slot = E row % RING),
+      // in runs, one plane per task.
       {
-        const int nblk = (g.MC + kRB - 1) / kRB;
-        for (int e = tid; e < ns * nblk * 2; e += NT) {
+        const int nrun = (g.MC + kRun - 1) / kRun;
+        for (int e = tid; e < ns * nrun * 4; e += NT) {
           const int lr = e % ns, rest = e / ns;
-          const int c0 = (rest % nblk) * kRB, v = rest / nblk;
-          const int nv = min(kRB, g.MC - c0);
-          const float* ca = cost + (2 * v) * STEP * g.PE + lr * g.PE + c0;
-          const float* cb = ca + STEP * g.PE;
-          float s1[kRB], s2[kRB];
-          window_sums<kRB>([&](int j) { return ca[j]; }, k, nv, s1);
-          window_sums<kRB>([&](int j) { return cb[j]; }, k, nv, s2);
-          const int slot = (i0 + lr) % RING;
-          float* da = x1 + (2 * v) * RING * g.PM + slot * g.PM + c0;
-          float* db = da + RING * g.PM;
-#pragma unroll
-          for (int i = 0; i < kRB; ++i)
-            if (i < nv) {
-              da[i] = s1[i];
-              db[i] = s2[i];
-            }
+          const int c0 = (rest % nrun) * kRun, pl = rest / nrun;
+          const float* src = cost + pl * STEP * g.PE + lr * g.PE + c0;
+          float* dst = x1 + pl * RING * g.PM + ((i0 + lr) % RING) * g.PM + c0;
+          run_sums1([&](int j) { return src[j]; }, k, min(kRun, g.MC - c0),
+                    [&](int i, float sx) { dst[i] = sx; });
         }
       }
       __syncthreads();
 
       // 4. a/b rows whose windows end in this step's rows: M row m needs
-      // E rows m .. m + 2R.
+      // E rows m .. m + 2R.  One run per 8 rows down a column.
       const int m_lo = max(0, i0 - P), m_hi = min(g.MB, i0 + ns - P);
       const int nm = m_hi - m_lo;
       if (nm > 0) {
-        const int nblk = (nm + kRB - 1) / kRB;
-        for (int e = tid; e < g.MC * nblk * 2; e += NT) {
+        const int nrun = (nm + kRun - 1) / kRun;
+        for (int e = tid; e < g.MC * nrun * 2; e += NT) {
           const int c = e % g.MC, rest = e / g.MC;
-          const int m0 = m_lo + (rest % nblk) * kRB, v = rest / nblk;
-          const int nv = min(kRB, m_hi - m0);
+          const int m0 = m_lo + (rest % nrun) * kRun, v = rest / nrun;
           const float* ra = x1 + (2 * v) * RING * g.PM + c;
           const float* rb = ra + RING * g.PM;
           const int slot0 = m0 % RING;
@@ -298,65 +287,58 @@ guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
             if (sl >= RING) sl -= RING;
             return plane[sl * g.PM];
           };
-          float s1[kRB], s2[kRB];
-          window_sums<kRB>([&](int j) { return ring(ra, j); }, k, nv, s1);
-          window_sums<kRB>([&](int j) { return ring(rb, j); }, k, nv, s2);
           const float* mean_v = guide + (2 * v) * g.MB * g.MC;
           const float* c_v = mean_v + g.MB * g.MC;
-#pragma unroll
-          for (int i = 0; i < kRB; ++i) {
-            if (i >= nv) break;
-            const int m = m0 + i, gy = ym + m, gx = xm + c;
-            float a = 0.f, b = 0.f;
-            if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-              guided_ab(s1[i], s2[i], window_area(gy, gx, H, W, R),
-                        mean_v[m * g.MC + c], c_v[m * g.MC + c], a, b);
-            ab[(2 * v) * STEP * g.PM + (m - m_lo) * g.PM + c] = a;
-            ab[(2 * v + 1) * STEP * g.PM + (m - m_lo) * g.PM + c] = b;
-          }
+          float* da = ab + (2 * v) * STEP * g.PM + (m0 - m_lo) * g.PM + c;
+          float* db = da + STEP * g.PM;
+          run_sums<kRun>(
+              [&](int j) { return ring(ra, j); }, [&](int j) { return ring(rb, j); }, k,
+              min(kRun, m_hi - m0), [&](int i, float s1, float s2) {
+                const int m = m0 + i, gy = ym + m, gx = xm + c;
+                float a = 0.f, b = 0.f;
+                if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                  guided_ab(s1, s2, window_area(gy, gx, H, W, R), mean_v[m * g.MC + c],
+                            c_v[m * g.MC + c], a, b);
+                da[i * g.PM] = a;
+                db[i * g.PM] = b;
+              });
         }
       }
       __syncthreads();
 
       // 5. x-sums of a, b over the tile columns into ring X2 (slot = M
-      // row % RING), one plane per task.
+      // row % RING), in runs, one plane per task.
       if (nm > 0) {
-        constexpr int nblk = kTileW / kRB;
-        for (int e = tid; e < nm * nblk * 4; e += NT) {
+        constexpr int nrun = kTileW / kRun;
+        for (int e = tid; e < nm * nrun * 4; e += NT) {
           const int lr = e % nm, rest = e / nm;
-          const int c0 = (rest % nblk) * kRB, pl = rest / nblk;
+          const int c0 = (rest % nrun) * kRun, pl = rest / nrun;
           const float* src = ab + pl * STEP * g.PM + lr * g.PM + c0;
-          float sx[kRB];
-          window_sums<kRB>([&](int j) { return src[j]; }, k, kRB, sx);
           float* dst = x2 + pl * RING * kPQ + ((m_lo + lr) % RING) * kPQ + c0;
-#pragma unroll
-          for (int i = 0; i < kRB; ++i) dst[i] = sx[i];
+          run_sums1([&](int j) { return src[j]; }, k, kRun,
+                    [&](int i, float sx) { dst[i] = sx; });
         }
       }
       __syncthreads();
 
       // 6. y-sums over X2 -> box(a), box(b) of the output rows whose
       // windows end in this step's a/b rows: output row o needs M rows
-      // o .. o + 2R.
+      // o .. o + 2R.  One run per 8 rows down a column, one plane per task.
       const int o_lo = max(0, m_lo - P), o_hi = min(band, m_hi - P);
       const int nq = o_hi - o_lo;
       if (nq > 0) {
-        const int nblk = (nq + kRB - 1) / kRB;
-        for (int e = tid; e < kTileW * nblk * 4; e += NT) {
+        const int nrun = (nq + kRun - 1) / kRun;
+        for (int e = tid; e < kTileW * nrun * 4; e += NT) {
           const int c = e % kTileW, rest = e / kTileW;
-          const int o0 = o_lo + (rest % nblk) * kRB, pl = rest / nblk;
-          const int nv = min(kRB, o_hi - o0);
+          const int o0 = o_lo + (rest % nrun) * kRun, pl = rest / nrun;
           const float* plane = x2 + pl * RING * kPQ + c;
           const int slot0 = o0 % RING;
-          float sy[kRB];
-          window_sums<kRB>([&](int j) {
+          float* dst = qs + pl * STEP * kPQ + (o0 - o_lo) * kPQ + c;
+          run_sums1([&](int j) {
             int sl = slot0 + j;
             if (sl >= RING) sl -= RING;
             return plane[sl * kPQ];
-          }, k, nv, sy);
-#pragma unroll
-          for (int i = 0; i < kRB; ++i)
-            if (i < nv) qs[pl * STEP * kPQ + (o0 + i - o_lo) * kPQ + c] = sy[i];
+          }, k, min(kRun, o_hi - o0), [&](int i, float sy) { dst[i * kPQ] = sy; });
         }
       }
       __syncthreads();
