@@ -597,13 +597,14 @@ def main() -> int:
     left, right = on_card(sc_small)
     profile_path("288x384 box", lambda: box_stereo_pipeline(left, right, DEFAULT_CONFIG), 20)
 
-    shapes = {"288x384": (288, 384, 16), "1992x3008": (1992, 3008, 16),
-              "288x384 D=8": (288, 384, 8), "1992x3008 D=8": (1992, 3008, 8),
-              "288x384 D=64": (288, 384, 64), "1988x2948 D=128": (1988, 2948, 128)}
-    for kernel in ("K1", "K2", "K3", "K4", "K5"):
-        for name, (h, w, d) in shapes.items():
-            if ("D=" not in name or kernel in ("K1", "K3") and d != 8
-                    or kernel in ("K3", "K4", "K5") and d == 8):
+    shapes = {"288x384": (288, 384, 16, COUNT_NAMES), "1992x3008": (1992, 3008, 16, COUNT_NAMES),
+              "288x384 D=8": (288, 384, 8, ("K3", "K4", "K5")),
+              "1992x3008 D=8": (1992, 3008, 8, ("K3", "K4", "K5")),
+              "288x384 D=64": (288, 384, 64, ("K1", "K3")),
+              "1988x2948 D=128": (1988, 2948, 128, ("K1", "K3"))}
+    for kernel in COUNT_NAMES:
+        for name, (h, w, d, kernels) in shapes.items():
+            if kernel in kernels:
                 ms, by = bound(h, w, d, kernel)
                 print(f"bound {kernel} {name}: {ms:.5f} ms ({by})")
 

@@ -10,9 +10,8 @@ K4 and K5 as ptxas reports them, and for 288x384 and 1992x3008 frames at
 16 and 8 disparities (random frames): ms per launch through the wrappers
 (K4 and K5 through ``guided_wta_fused_dual``, both views; K3 through
 ``guided_wta_fused``, one view), then K4 at each tile height of 32, 16
-and 8 rows and K5 at each block height (8, 16), step (8, 16) and band
-whose shared memory fits at least two CTAs per SM, with the shapes the
-wrappers pick marked.  CUDA events after warm-up, in one process.
+and 8 rows and K5 at each step (16, 8) and band whose shared memory fits
+at least two CTAs per SM, with the shapes the wrappers pick marked.  CUDA events after warm-up, in one process.
 
 ``--root DIR`` imports the package from another checkout (for example
 the parent commit unpacked with ``git archive``); with
@@ -86,7 +85,7 @@ def main() -> int:
         launch = (cfg.d_min, d, cfg.radius, cost_constants(cfg), cfg.eps)
         pick = _kernels.guided_wta_dual_tile_rows(cfg.radius, reach)
         step_pick = _kernels.guided_wta_dual_stream_step(cfg.radius, reach)
-        pick5 = (_kernels._K5_BLOCK_ROWS, step_pick, _kernels.guided_wta_dual_stream_band_rows(
+        pick5 = (step_pick, _kernels.guided_wta_dual_stream_band_rows(
             cfg.radius, reach, h, w, n_sm, step_pick))
         for th in (32, 16, 8):
             smem = lib.guided_wta_dual_smem_bytes(cfg.radius, th, reach)
@@ -97,20 +96,18 @@ def main() -> int:
             print(f"{tag}: K4 tile {th} rows, {-(-w // 32) * -(-h // th)} CTAs, smem {smem} B "
                   f"({_kernels.smem_ctas_per_sm(smem)} CTAs/SM by smem): {ms:.4f} ms"
                   + ("  (picked)" if th == pick else ""))
-        for by in (8, 16):
-            for step in (8, 16):
-                for band in _kernels._BANDS:
-                    smem = lib.guided_wta_dual_stream_smem_bytes(cfg.radius, band, reach, step)
-                    per_sm = _kernels.smem_ctas_per_sm(smem)
-                    if smem > _kernels._SMEM_LIMIT or per_sm < 2:
-                        continue
-                    ms = cuda_ms(lambda: _kernels.guided_wta_dual_stream(
-                        g1, g2, outs, *launch, band=band, block_rows=by, step=step), iters)
-                    picked = (by, step, band) == pick5
-                    print(f"{tag}: K5 block 32x{by} step {step} band {band}, "
-                          f"{-(-w // 32) * -(-h // band)} CTAs, smem {smem} B "
-                          f"({per_sm} CTAs/SM by smem): {ms:.4f} ms"
-                          + ("  (picked)" if picked else ""))
+        for step in _kernels._K5_STEPS:
+            for band in _kernels._BANDS:
+                smem = lib.guided_wta_dual_stream_smem_bytes(cfg.radius, band, reach, step)
+                per_sm = _kernels.smem_ctas_per_sm(smem)
+                if smem > _kernels._SMEM_LIMIT or per_sm < 2:
+                    continue
+                ms = cuda_ms(lambda: _kernels.guided_wta_dual_stream(
+                    g1, g2, outs, *launch, band=band, step=step), iters)
+                print(f"{tag}: K5 step {step} band {band}, "
+                      f"{-(-w // 32) * -(-h // band)} CTAs, smem {smem} B "
+                      f"({per_sm} CTAs/SM by smem): {ms:.4f} ms"
+                      + ("  (picked)" if (step, band) == pick5 else ""))
         del g1, g2, outs
     return 0
 

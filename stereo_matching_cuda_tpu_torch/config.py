@@ -3,8 +3,9 @@
 The counterpart of ``stereo_matching_cuda_tpu/config.py``: the reference
 tunables (``SystemIncludes.h:6-24``) with the same defaults, plus the
 framework fields that change results or routing.  ``dual_view`` and
-``stream`` route the kernel path to different kernels (both views in one
-pass: K4 tiled, K5 row-walking).  The other TPU scheduling knobs of the
+``stream`` route the kernel path to different kernels: one kernel per
+view (K3 tiled, or K1 row-walking with ``stream=True``) or both views in
+one pass (K4 tiled, K5 row-walking).  The other TPU scheduling knobs of the
 JAX config (staged, unroll_max, y_sum, slice_group, vmem_mb,
 sw_pipeline, dma_buffer) are not carried: none of them changes the
 function computed or the kernel run.
@@ -57,12 +58,14 @@ class StereoConfig:
     # Both views in one kernel pass (ops/fused_guided.py
     # guided_wta_fused_dual: shared input windows and raw cost slice).
     # "auto" = when the kernel path runs and size_d <= 8; True forces;
-    # False always runs K1 once per view.
+    # False always runs one single-view kernel per view (K3, or K1 with
+    # stream=True).
     dual_view: str | bool = "auto"
-    # Dual-view kernel choice: True = K5 (row walk down a band, the 2R
-    # y-halo paid once per band), False = K4 (tiles with their halo
+    # Row walk or tiles.  Dual route: True = K5 (row walk down a band, the
+    # 2R y-halo paid once per band), False = K4 (tiles with their halo
     # recomputed), None = K5 from 200,000 px when it fits one block's
-    # shared memory.  The single-view route ignores it.
+    # shared memory.  Single-view route: True = K1 (row walk), False or
+    # None = K3 (tiles; pipeline.use_stream).
     stream: Optional[bool] = None
     # CUDA post kernel (ops/fused_post.py: LR check + occlusion fill).
     # None follows the matching path; bit-identical either way.

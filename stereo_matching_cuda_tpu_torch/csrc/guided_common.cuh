@@ -5,10 +5,10 @@
 // the left and the right view's matching in one pass, from one raw cost
 // slice per disparity.
 //
-// Window sums.  K1 and the guide statistics of every kernel sum each
-// window directly, kRB at a time (window_sums, x_sums).  The box passes
-// of K3, K4 and K5 that run once per slice sum runs of kRun windows from
-// one direct seed (run_sums, x_runs).
+// Window sums.  K1, the guide statistics of every kernel and the last
+// y-pass of K3 and K4 sum each window directly (window_sums, x_sums).
+// The other per-slice box passes of K3 and K4, and passes 3-6 of K5, sum
+// runs of kRun windows from one direct seed (run_sums, x_runs).
 //
 // Dual-view kernels.  The raw slice.  For left label d the truncated AD + gradient cost at
 // global column x is raw(x) = F(I_l(x), I_r(x + d)).  The right view's
@@ -44,7 +44,8 @@ constexpr int kBlockY = 8;       // the block is kTileW x kBlockY threads
 constexpr int kThreads = kTileW * kBlockY;
 constexpr int kRB = 4;           // adjacent windows one thread sums at once
 // Windows per run of the sliding box passes: float runs of 8 beat 4, 12
-// and 16 and runs added in double on K3 (PERF.md, Findings, PR 5).
+// and 16 and runs added in double on K3 (PERF.md, Findings: K3
+// redesigned in three checked stages).
 constexpr int kRun = 8;
 
 // Block height of a TH-row tile (K3, K4): 16 (512 threads, two CTAs and
@@ -87,9 +88,9 @@ __device__ inline void window_sums(Load at, int k, int nv, Acc (&out)[RB]) {
   }
 }
 
-// The same over src[0], src[stride], src[2 * stride], ...: K1 and K3 ran
-// faster on this form, K5 on the loader form (PERF.md, Findings, PR 2:
-// one header).
+// The same over src[0], src[stride], src[2 * stride], ...: K3 and K4 ran
+// faster on this form, K5 on the loader form (PERF.md, Findings: the
+// dual-view path, one header).
 template <int RB, typename Acc>
 __device__ inline void window_sums(const float* __restrict__ src, int stride,
                                    int k, int nv, Acc (&out)[RB]) {

@@ -36,7 +36,7 @@
 // two.  So the guide statistics (written once per CTA, read once per
 // slice) live in a per-CTA device scratch that stays in L2, and a CTA at
 // R=9, D=16 takes 99,416 bytes at TH=32: two CTAs per SM (PERF.md,
-// Findings, PR 2: shared memory, not the halo).
+// Findings: the dual-view path, shared memory, not the halo).
 
 #include "guided_common.cuh"
 

@@ -37,21 +37,27 @@
 // slide as in K3.  Passes 3, 5 and 6 take one plane per thread, pass 4
 // the two planes that make a and b.
 //
-// Block and step.  The kernel is built for 32 x BY threads (BY = 8 or 16)
-// and steps of STEP = 8 or 16 rows; the wrapper picks the shape and sizes
-// the band for its CTAs per SM (ops/_kernels.py).  A 512-thread block is
-// built for two CTAs per SM (at most 64 registers a thread), a 256-thread
-// one for three (80).
+// Block and step.  32 x 16 threads at __launch_bounds__(512, 2): two
+// CTAs, 32 warps, per SM (at most 64 registers a thread).  The walk adds
+// STEP = 16 rows a step, or 8 for radii whose 16-row step buffers do not
+// fit one block; the wrapper (ops/_kernels.py) picks the step and sizes
+// the band for two CTAs per SM, at most 96 rows.  With 16-row steps a
+// step's passes have 200-512 tasks for 512 threads and half the barriers
+// per output row: 20% faster at 6 MP than the first design's 32 x 8
+// threads with 8-row steps at three CTAs per SM.  On that first shape
+// runs of 8 left half the block idle in passes 4-6 and ran 4% slower
+// than direct sums; on this one they beat direct sums of 4 by 4%
+// (PERF.md, Findings: K4 and K5 redesigned).
 //
-// What bounds it on the H100.  Shared-memory traffic and issue, as K4,
+// What bounds it on the H100.  Shared-memory latency and issue, as K4,
 // with the y halo ratio of the cost cut from (TH+4R)/TH to
 // (band+4R)/band and that of a/b from (TH+2R)/TH to (band+2R)/band, for
 // seven barriers per step.  Its shared memory is the step buffers and
-// the band's input windows: at R=9, D=16, 8-row steps, 75,544 bytes at
-// band=72, three CTAs (24 warps) per SM.  Keeping the band-sized planes
-// in shared memory instead capped the band at 24 rows for two CTAs per
-// SM and measured 1.5x slower (PERF.md, Findings, PR 2: K5's strip
-// carry).
+// the band's input windows: at R=9, D=16, 16-row steps, 112,616 bytes at
+// band 96, two CTAs per SM.  Keeping the band-sized planes in shared
+// memory instead capped the band at 24 rows for two CTAs per SM and
+// measured 1.5x slower (PERF.md, Findings: the dual-view path, K5's
+// strip carry).
 
 #include "guided_common.cuh"
 
@@ -60,6 +66,7 @@ namespace {
 using namespace guided;
 
 constexpr int kPQ = kTileW + 1;      // pitch of the 32-column planes
+constexpr int kBY = 16;              // the block is kTileW x kBY threads
 
 struct Geom {
   int P;        // 2R
@@ -113,14 +120,14 @@ __device__ inline void run_sums1(L a, int k, int nv, Emit emit) {
                  [&](int i, float sa, float) { emit(i, sa); });
 }
 
-template <int BY, int STEP>
-__global__ void __launch_bounds__(kTileW * BY, BY == 16 ? 2 : 3)
+template <int STEP>
+__global__ void __launch_bounds__(kTileW * kBY, 2)
 guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
                               const uint8_t* __restrict__ gray_r,
                               float* __restrict__ best_l_out, float* __restrict__ dmap_l_out,
                               float* __restrict__ best_r_out, float* __restrict__ dmap_r_out,
                               float* scratch, Params p, int band) {
-  constexpr int NT = kTileW * BY;       // threads of the block
+  constexpr int NT = kTileW * kBY;      // threads of the block
   extern __shared__ float smem[];
   const Geom g = geometry(p.R, band, p.pos + p.neg, STEP);
   const int P = g.P, R = p.R, H = p.H, W = p.W, RING = g.RING;
@@ -149,7 +156,7 @@ guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
   const int off[2] = {p.pos, p.neg};         // window column of E column c: c + 1 + off
 
   // Input windows of the whole band, zero outside the image.
-  for (int r = threadIdx.y; r < g.NR; r += BY) {
+  for (int r = threadIdx.y; r < g.NR; r += kBY) {
     const int gy = ye + r;
     const bool row_in = gy >= 0 && gy < H;
 #pragma unroll
@@ -164,7 +171,7 @@ guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
   }
   __syncthreads();
 
-  // Guide statistics of each view over the band's M rows (as K1 and K4:
+  // Guide statistics of each view over the band's M rows (as K3 and K4:
   // integer x-sums exact in float, y-sums in double, rounded once).
   for (int v = 0; v < 2; ++v) {
     const uint8_t* iw = win + v * g.NR * g.WC + 1 + off[v];
@@ -382,16 +389,16 @@ guided_wta_dual_stream_kernel(const uint8_t* __restrict__ gray_l,
   }
 }
 
-template <int BY, int STEP>
+template <int STEP>
 cudaError_t launch(const uint8_t* gl, const uint8_t* gr, float* const* outs,
                    float* scratch, int N, const Params& p, int band, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.R, band, p.pos + p.neg, STEP);
-  cudaError_t err = cudaFuncSetAttribute(guided_wta_dual_stream_kernel<BY, STEP>,
+  cudaError_t err = cudaFuncSetAttribute(guided_wta_dual_stream_kernel<STEP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.W + kTileW - 1) / kTileW, (p.H + band - 1) / band, N);
-  guided_wta_dual_stream_kernel<BY, STEP><<<grid, dim3(kTileW, BY), smem, stream>>>(
+  guided_wta_dual_stream_kernel<STEP><<<grid, dim3(kTileW, kBY), smem, stream>>>(
       gl, gr, outs[0], outs[1], outs[2], outs[3], scratch, p, band);
   return cudaGetLastError();
 }
@@ -414,16 +421,15 @@ extern "C" long long guided_wta_dual_stream_scratch_bytes(int R, int band, int N
 }
 
 // Launches K5 on `stream`.  Arguments as guided_wta_dual_launch, with the
-// band height (output rows per CTA, >= 1) in place of the tile height,
-// the block height BY (8 or 16: 32 x BY threads) and the step (8 or 16
-// rows), and `scratch`: device memory of
+// band height (output rows per CTA, >= 1) in place of the tile height
+// and the step (8 or 16 rows), and `scratch`: device memory of
 // guided_wta_dual_stream_scratch_bytes.
 extern "C" int guided_wta_dual_stream_launch(const void* gray_l, const void* gray_r,
                                              void* best_l, void* dmap_l,
                                              void* best_r, void* dmap_r,
                                              void* scratch,
                                              int N, int H, int W, int dmin, int D,
-                                             int R, int band, int BY, int step,
+                                             int R, int band, int step,
                                              float one_m_alpha, float alpha,
                                              float th_color, float th_grad, float oob,
                                              double eps, void* stream) {
@@ -436,11 +442,9 @@ extern "C" int guided_wta_dual_stream_launch(const void* gray_l, const void* gra
                     static_cast<float*>(best_r), static_cast<float*>(dmap_r)};
   auto* sc = static_cast<float*>(scratch);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (BY * 100 + step) {
-    case 808: return (int)launch<8, 8>(gl, gr, outs, sc, N, p, band, st);
-    case 816: return (int)launch<8, 16>(gl, gr, outs, sc, N, p, band, st);
-    case 1608: return (int)launch<16, 8>(gl, gr, outs, sc, N, p, band, st);
-    case 1616: return (int)launch<16, 16>(gl, gr, outs, sc, N, p, band, st);
+  switch (step) {
+    case 16: return (int)launch<16>(gl, gr, outs, sc, N, p, band, st);
+    case 8: return (int)launch<8>(gl, gr, outs, sc, N, p, band, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

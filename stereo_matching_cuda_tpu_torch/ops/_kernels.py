@@ -64,7 +64,7 @@ _SIGNATURES = {
     "guided_wta_dual_launch": (_I, [_P] * 7 + _LAUNCH_ARGS),
     "guided_wta_dual_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     "guided_wta_dual_scratch_bytes": (ctypes.c_longlong, [_I] * 5),
-    "guided_wta_dual_stream_launch": (_I, [_P] * 7 + [_I] * 9 + [_F] * 5
+    "guided_wta_dual_stream_launch": (_I, [_P] * 7 + [_I] * 8 + [_F] * 5
                                       + [ctypes.c_double, _P]),
     "guided_wta_dual_stream_smem_bytes": (ctypes.c_longlong, [_I] * 4),
     "guided_wta_dual_stream_scratch_bytes": (ctypes.c_longlong, [_I] * 5),
@@ -150,7 +150,7 @@ _SMEM_PER_SM = 233_472
 _SMEM_RESERVED_PER_BLOCK = 1_024
 
 # CTAs per SM each kernel's tile or band is sized for: occupancy first,
-# then height (PERF.md, Findings: PR 5 for K3, PR 6 for K4 and K5).
+# then height (PERF.md, Findings: K3 redesigned, K4 and K5 redesigned).
 # The 512-thread blocks of K3, K4 and K5 are built for two
 # (``__launch_bounds__(512, 2)``: at most 64 registers a thread), and so
 # are K3's and K4's 256-thread blocks of 8-row tiles.
@@ -237,7 +237,7 @@ def guided_wta_dual_tile_rows(radius: int, reach: int) -> int:
     first (up to ``_K4_CTAS_PER_SM``), then the tallest, whatever the
     frame.  With 512-thread blocks the 32-row tile beat the 16-row one
     at 288x384 too, though its 108 CTAs leave SMs idle (PERF.md,
-    Findings, PR 6)."""
+    Findings: K4 and K5 redesigned)."""
     lib = build()["lib"]
     return _tallest_fullest({th: lib.guided_wta_dual_smem_bytes(radius, th, reach)
                              for th in (32, 16, 8)}, _K4_CTAS_PER_SM,
@@ -286,16 +286,14 @@ def guided_wta_stream(gray1, gray2, best, dmap, dmin, size_d, radius,
     _check(err, "guided_wta_stream_launch")
 
 
-# K5's block height (32 x 16 threads), its steps (rows the walk adds at
-# a time), tried in this order, and its bands.  16-row steps on
-# 512-thread blocks ran 20% faster than PR 5's 8-row steps on 256 threads
-# at 6 MP; above 96 rows the bands ran ~4% slower (PERF.md, Findings,
-# PR 6).  8-row steps take less shared memory, so radii up to 31 still
-# fit at R=9's reach where 16-row steps stop at 25.
-_K5_BLOCK_ROWS = 16
+# K5's steps (rows the walk adds at a time), tried in this order, and its
+# bands.  16-row steps on 512-thread blocks ran 20% faster at 6 MP than
+# K5's earlier 8-row steps on 256 threads; above 96 rows the bands ran ~4%
+# slower (PERF.md, Findings: K4 and K5 redesigned).  8-row steps take less
+# shared memory, so radii up to 31 still fit at 16 disparities where
+# 16-row steps stop at 25.
 _K5_STEPS = (16, 8)
-_K5_MAX_BAND = 96
-_K5_BANDS = tuple(b for b in _BANDS if b <= _K5_MAX_BAND)
+_K5_BANDS = tuple(b for b in _BANDS if b <= 96)
 
 
 @functools.lru_cache(maxsize=None)
@@ -359,22 +357,19 @@ def guided_wta_dual(gray_l, gray_r, outs, dmin, size_d, radius, constants,
 
 
 def guided_wta_dual_stream(gray_l, gray_r, outs, dmin, size_d, radius,
-                           constants, eps, band=None, block_rows=None,
-                           step=None) -> None:
+                           constants, eps, band=None, step=None) -> None:
     """Launch K5 (csrc/guided_wta_dual_stream.cu) on the current stream;
-    arguments as guided_wta_dual.  ``block_rows`` (8 or 16) defaults to
-    ``_K5_BLOCK_ROWS``, ``step`` (8 or 16) to
+    arguments as guided_wta_dual.  ``step`` (8 or 16) defaults to
     ``guided_wta_dual_stream_step`` and ``band`` to
     ``guided_wta_dual_stream_band_rows``; they are set only to test or
     measure other shapes of the kernel."""
     _, h, w = gray_l.shape
     reach = dual_reach(dmin, size_d)
-    block_rows = block_rows or _K5_BLOCK_ROWS
     step = step or guided_wta_dual_stream_step(radius, reach) or _K5_STEPS[-1]
     if band is None:
         band = guided_wta_dual_stream_band_rows(radius, reach, h, w,
                                                 _n_sm(gray_l.device), step)
-    _dual_launch("guided_wta_dual_stream", (band, block_rows, step), gray_l, gray_r,
+    _dual_launch("guided_wta_dual_stream", (band, step), gray_l, gray_r,
                  outs, dmin, size_d, radius, constants, eps)
 
 

@@ -85,11 +85,13 @@ def use_stream(cfg: StereoConfig, h: int, w: int, dual: bool = True) -> bool:
     Single-view route: K1 (True) only when ``cfg.stream`` is True, K3
     (tiled) when it is False or None.  This deviates from the JAX rule,
     which streams below 200,000 px when 8 < size_d <= 32 and from 200,000
-    px when the stream fits (pipeline.py:223-287): on the H100 the row
-    walk of the dual route (K5) measured slower than its tiles (K4), so
-    the port's default single view keeps its tiled kernel until a
-    benchmark gives an H100 routing table (PERF.md, Findings).  The rule
-    needs no kernel library, so it is decided on the CPU too."""
+    px when the stream fits (pipeline.py:223-287): on the H100 the
+    single-view row walk K1 measured slower than the tiles K3 at every
+    size (K1/K3 1.84x at 288x384, 1.18x at 6 MP, 1.89x at 64 and 1.34x
+    at 128 disparities; PERF.md, Findings: K3, the single-view row
+    walk), so the port's default single view keeps its tiled kernel
+    until a benchmark gives an H100 routing table.  The rule needs no
+    kernel library, so it is decided on the CPU too."""
     if not dual:
         return cfg.stream is True
     if cfg.stream is not None:

@@ -277,7 +277,7 @@ def test_k3_batch_equals_per_frame_on_16_row_tiles(dev):
 
 
 def _dual_at(g1, g2, cfg, **shape):
-    """K4 (``tile_rows``) or K5 (``band``, ``block_rows``, ``step``) at one
+    """K4 (``tile_rows``) or K5 (``band``, ``step``) at one
     launch shape: uint8 (H, W) or (B, H, W) x2 -> (best_l, dmap_l, best_r,
     dmap_r)."""
     from stereo_matching_cuda_tpu_torch.ops import _kernels
@@ -312,7 +312,7 @@ def _k4_tiles(cfg):
             if lib.guided_wta_dual_smem_bytes(cfg.radius, th, reach) <= _kernels._SMEM_LIMIT]
 
 
-K5_SHAPES = [(by, step) for by in (8, 16) for step in (8, 16)]
+K5_STEPS = (16, 8)
 
 
 @pytest.mark.parametrize("h,w", [(1, 40), (17, 31), (33, 33), (64, 65), (40, 97)])
@@ -326,30 +326,29 @@ def test_k4_tile_edges(dev, h, w):
 @pytest.mark.parametrize("h,band", [(37, 8), (53, 24), (61, 16), (101, 40), (29, 112)])
 def test_k5_band_edges(dev, h, band):
     """Heights that are a multiple of neither the step nor the band, at
-    every block height and step."""
+    every step."""
     g1, g2 = _pair(h, 70, h + band, dev)
     _assert_dual_bound(g1, g2, DEFAULT_CONFIG,
-                       [{"band": band, "block_rows": by, "step": step}
-                        for by, step in K5_SHAPES])
+                       [{"band": band, "step": step} for step in K5_STEPS])
 
 
 @pytest.mark.parametrize("radius", [1, "largest"])
 def test_dual_radius_extremes(dev, radius):
     """R=1, and the largest radius whose smallest tile (K4) or band (K5)
-    fits one block, at every tile height and K5 shape that fits."""
+    fits one block, at every tile height and K5 step that fits."""
     from stereo_matching_cuda_tpu_torch.ops import _kernels
 
     lib = _kernels.build()["lib"]
     reach = _kernels.dual_reach(DEFAULT_CONFIG.d_min, DEFAULT_CONFIG.size_d)
     k4_max = max(r for r in range(1, 40)
                  if lib.guided_wta_dual_smem_bytes(r, 8, reach) <= _kernels._SMEM_LIMIT)
-    for by, step in K5_SHAPES:
+    for step in K5_STEPS:
         r5 = radius if radius == 1 else max(
             r for r in range(1, 40)
             if lib.guided_wta_dual_stream_smem_bytes(r, 8, reach, step) <= _kernels._SMEM_LIMIT)
         cfg = dataclasses.replace(DEFAULT_CONFIG, radius=r5)
-        g1, g2 = _pair(50, 90, r5 + by + step, dev)
-        _assert_dual_bound(g1, g2, cfg, [{"band": 8, "block_rows": by, "step": step}])
+        g1, g2 = _pair(50, 90, r5 + 16 + step, dev)
+        _assert_dual_bound(g1, g2, cfg, [{"band": 8, "step": step}])
     cfg = dataclasses.replace(DEFAULT_CONFIG, radius=1 if radius == 1 else k4_max)
     tiles = _k4_tiles(cfg)
     assert tiles == ([32, 16, 8] if radius == 1 else [8]), tiles
@@ -358,12 +357,11 @@ def test_dual_radius_extremes(dev, radius):
 
 
 @pytest.mark.parametrize("shape", [{"tile_rows": 32}, {"tile_rows": 16},
-                                   {"band": 24, "block_rows": 16, "step": 16},
-                                   {"band": 24, "block_rows": 8, "step": 8}],
-                         ids=["K4-32", "K4-16", "K5-16x16", "K5-8x8"])
+                                   {"band": 24, "step": 16}, {"band": 24, "step": 8}],
+                         ids=["K4-32", "K4-16", "K5-step16", "K5-step8"])
 def test_dual_batch_equals_per_frame_at_each_block(dev, shape):
-    """A B=3 batch at 512-thread blocks (and K5's 256-thread one) equals
-    per-frame launches bit for bit."""
+    """A B=3 batch at 512-thread blocks (K4's 16- and 32-row tiles, K5 at
+    each step) equals per-frame launches bit for bit."""
     pairs = [_pair(70, 100, s, dev) for s in (7, 8, 9)]
     batch = _dual_at(torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs]),
                      DEFAULT_CONFIG, **shape)
