@@ -56,6 +56,7 @@ CFG8 = StereoConfig(d_min=-7, d_max=0)           # 8 disparities: the auto dual 
 STRADDLE = StereoConfig(d_min=-8, d_max=8)
 DUAL16 = dataclasses.replace(DEFAULT_CONFIG, dual_view=True)
 STREAM16 = dataclasses.replace(DEFAULT_CONFIG, stream=True)
+STREAM8 = dataclasses.replace(CFG8, stream=True)
 # Kernel function names, as the profiler reports them, by layer.
 KERNEL_NAMES = {"guided_wta_stream_kernel": "K1", "lr_fill_kernel": "K2",
                 "guided_wta_kernel": "K3", "guided_wta_dual_kernel": "K4",
@@ -174,6 +175,12 @@ def check_k2(kernel_maps):
     dl, dr = label_maps(DEFAULT_CONFIG, 24, 256, 2)
     dr[3:6] = -DEFAULT_CONFIG.d_min + 50      # rows with no LR-consistent pixel
     cases.append((DEFAULT_CONFIG, dl, dr))
+    # a width that is not a multiple of 4 (rows at every alignment), and
+    # the same maps 4 bytes past a 16-byte boundary (K2's one-float path)
+    dl, dr = label_maps(DEFAULT_CONFIG, 7, 383, 6)
+    cases.append((DEFAULT_CONFIG, dl, dr))
+    cases.append((DEFAULT_CONFIG, *(torch.cat([m.new_zeros(1), m.reshape(-1)])[1:].view(m.shape)
+                                    for m in (dl, dr))))
     cases += kernel_maps
     worst = 0.0
     for cfg, dl, dr in cases:
@@ -353,6 +360,16 @@ def k3_tile(h, w, cfg):
             f"{_kernels.smem_ctas_per_sm(smem)} CTAs/SM by shared memory")
 
 
+def k1_walk(h, w, cfg):
+    """K1's launch shape on one (h, w) frame: step, band and the grid's
+    CTAs."""
+    step = _kernels.guided_wta_stream_step(cfg.radius, cfg.size_d)
+    band = _kernels.guided_wta_stream_band_rows(cfg.radius, cfg.size_d, h, w,
+                                                _kernels._n_sm(torch.device(DEV)), step)
+    return (f"; k1 step {step} rows, band {band} rows, "
+            f"{-(-w // _kernels._K1_TILE_W) * -(-h // band)} CTAs")
+
+
 def on_card(sc):
     return (torch.from_numpy(sc["left"]).to(DEV), torch.from_numpy(sc["right"]).to(DEV))
 
@@ -360,8 +377,8 @@ def on_card(sc):
 def time_scene(name, sc, sc8, iters):
     """ms per frame (default, stream=True, dual D=16 and auto D=8 kernel
     paths, the plain path) and per kernel launch (K3 and K1 on the left
-    view, K4 and K5 forced at D=16 and at D=8, K3 on the left view at D=8,
-    K2) with their plain versions, for one frame size."""
+    view, K4 and K5 forced at D=16 and at D=8, K3 and K1 on the left view
+    at D=8, K2) with their plain versions, for one frame size."""
     left, right = on_card(sc)
     left8, right8 = on_card(sc8)
     cfg = DEFAULT_CONFIG
@@ -388,14 +405,15 @@ def time_scene(name, sc, sc8, iters):
         "k5_ms": cuda_ms(lambda: guided_wta_fused_dual(gl, gr, k5), iters),
         "k4_d8_ms": cuda_ms(lambda: guided_wta_fused_dual(gl8, gr8, k4_d8), iters),
         "k5_d8_ms": cuda_ms(lambda: guided_wta_fused_dual(gl8, gr8, k5_d8), iters),
-        # one view: the single-view route at D=8 runs it twice
+        # one view each: the single-view routes at D=8 run them twice
         "k3_d8_ms": cuda_ms(lambda: guided_wta_fused(gl8, gr8, CFG8.d_min, CFG8), iters),
+        "k1_d8_ms": cuda_ms(lambda: guided_wta_fused(gl8, gr8, CFG8.d_min, STREAM8), iters),
         "dual_plain_ms": cuda_ms(lambda: guided_wta_fused_dual_reference(gl, gr, cfg), few),
         "k2_ms": cuda_ms(lambda: lr_fill_fused(dl, dr, cfg), iters),
         "k2_plain_ms": cuda_ms(lambda: lr_fill_reference(dl, dr, cfg), iters),
     }
     print(f"timing {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
-          + k3_tile(*gl.shape, cfg))
+          + k3_tile(*gl.shape, cfg) + k1_walk(*gl.shape, cfg))
     return t
 
 
@@ -598,8 +616,8 @@ def main() -> int:
     profile_path("288x384 box", lambda: box_stereo_pipeline(left, right, DEFAULT_CONFIG), 20)
 
     shapes = {"288x384": (288, 384, 16, COUNT_NAMES), "1992x3008": (1992, 3008, 16, COUNT_NAMES),
-              "288x384 D=8": (288, 384, 8, ("K3", "K4", "K5")),
-              "1992x3008 D=8": (1992, 3008, 8, ("K3", "K4", "K5")),
+              "288x384 D=8": (288, 384, 8, ("K1", "K3", "K4", "K5")),
+              "1992x3008 D=8": (1992, 3008, 8, ("K1", "K3", "K4", "K5")),
               "288x384 D=64": (288, 384, 64, ("K1", "K3")),
               "1988x2948 D=128": (1988, 2948, 128, ("K1", "K3"))}
     for kernel in COUNT_NAMES:

@@ -96,7 +96,7 @@ def main() -> int:
             print(f"{tag}: K4 tile {th} rows, {-(-w // 32) * -(-h // th)} CTAs, smem {smem} B "
                   f"({_kernels.smem_ctas_per_sm(smem)} CTAs/SM by smem): {ms:.4f} ms"
                   + ("  (picked)" if th == pick else ""))
-        for step in _kernels._K5_STEPS:
+        for step in _kernels._STEPS:
             for band in _kernels._BANDS:
                 smem = lib.guided_wta_dual_stream_smem_bytes(cfg.radius, band, reach, step)
                 per_sm = _kernels.smem_ctas_per_sm(smem)

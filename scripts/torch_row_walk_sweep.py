@@ -1,19 +1,36 @@
-"""Shape sweep of the port's single-view row-walk kernel K1
-(``stereo_matching_cuda_tpu_torch/csrc/guided_wta_stream.cu``) beside the
-tiled kernel K3 on one NVIDIA GPU.
+"""The single-view row-walk kernel K1 (``csrc/guided_wta_stream.cu``) per
+launch shape beside the tiled kernel K3, and the post kernel K2
+(``csrc/lr_fill.cu``), on one NVIDIA GPU.
 
-    python3 scripts/torch_row_walk_sweep.py
+    python3 scripts/torch_row_walk_sweep.py [--root DIR] [--wrappers-only]
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
-For 288x384 and 1992x3008 frames at 16 disparities it prints the card's
-name and power limit, K3's ms per launch, and K1's ms per launch at each
-tile width (32, 64 columns) and band height whose shared memory fits one
-block, with the band the wrapper picks; CUDA events after warm-up, all
-in one process.  Exits non-zero without a CUDA device.
+It prints the card's name and power limit, the registers and spills of
+K1 and K2 as ptxas reports them, and for 288x384 and 1992x3008 frames at
+16 and 8 disparities (random frames): ms per launch through the wrappers
+(K1 and K3 through ``guided_wta_fused``, one view; K2 through
+``lr_fill_fused`` on random label maps, at 16 disparities).  Then K1 at
+each launch variant (tile width, step, the passes that sum runs, guide
+statistics in shared memory or in L2) and band whose shared memory fits
+two CTAs per SM, each variant first checked against the plain version on
+the frame (the fused bound), with the shapes the wrapper picks marked;
+at the picked bands, the passes of each tile and step without L2 in
+turns, and TURNS in turns; and K2 at 1, 2, 4 and 8 rows per CTA, each
+first checked bit for bit, in turns.  CUDA events after warm-up, in one
+process.
+
+``--root DIR`` imports the package from another checkout (for example
+the parent commit unpacked with ``git archive``); with
+``--wrappers-only`` only the wrapper times are taken, which any checkout
+from the row-walk port on gives.  Run the two checkouts in turns (old,
+new, new, old) to compare them on one card.  Exits non-zero without a
+CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -21,47 +38,149 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from torch_k3_tiles import ptxas_lines
 
-from stereo_matching_cuda_tpu_torch import DEFAULT_CONFIG  # noqa: E402
-from stereo_matching_cuda_tpu_torch.ops import _kernels  # noqa: E402
-from stereo_matching_cuda_tpu_torch.ops.cost import cost_constants  # noqa: E402
-from stereo_matching_cuda_tpu_torch.timing import cuda_ms  # noqa: E402
+SHAPES = ((288, 384, 16, 50), (1992, 3008, 16, 10), (288, 384, 8, 50),
+          (1992, 3008, 8, 10))
+KERNELS = {"K1": "guided_wta_stream_kernel", "K2": "lr_fill_kernel", "K3": "guided_wta_kernel"}
+RUNS = (0, 13, 15)
+# K1 launch variants: tile width, step, the passes that sum runs (bit
+# mask) and guide statistics in an L2 scratch.
+VARIANTS = ([dict(tile_w=tw, step=st, runs=r, l2=False)
+             for tw in (32, 64) for st in (16, 8) for r in RUNS]
+            + [dict(tile_w=tw, step=st, runs=r, l2=True) for tw, st, r in (
+                (32, 16, 15), (64, 16, 15), (64, 16, 13), (64, 8, 15), (64, 8, 13))])
+# The variants timed in turns at the band the wrapper picks for them.
+TURNS = [VARIANTS[2], VARIANTS[-4], VARIANTS[-3]]
 
-BANDS = (8, 16, 24, 32, 48, 64, 96, 128)
+
+def device_ms(call, iters, kernel):
+    """Mean device time per call of the kernel functions whose name
+    contains ``kernel``, from torch.profiler after warm-up (ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name)
+    return us / iters / 1e3
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
+    ap.add_argument("--wrappers-only", action="store_true")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
+    sys.path.insert(0, args.root)
+    from stereo_matching_cuda_tpu_torch import StereoConfig
+    from stereo_matching_cuda_tpu_torch.ops import _kernels
+    from stereo_matching_cuda_tpu_torch.ops.cost import cost_constants
+    from stereo_matching_cuda_tpu_torch.ops.fused_guided import (
+        guided_wta_fused, guided_wta_fused_reference)
+    from stereo_matching_cuda_tpu_torch.ops.fused_post import lr_fill_fused, lr_fill_reference
+    from stereo_matching_cuda_tpu_torch.timing import cuda_ms
+
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    lib = _kernels.build()["lib"]
-    cfg = DEFAULT_CONFIG
-    args = (cfg.d_min, cfg.size_d, cfg.radius, cost_constants(cfg), cfg.eps)
+    print(f"package {_kernels.__file__}")
+    info = _kernels.build()
+    if not args.wrappers_only:
+        for kernel in ("guided_wta_stream_kernel", "lr_fill_kernel"):
+            for line in ptxas_lines(info["log"], kernel):
+                print(f"ptxas {line}")
+    lib = info["lib"]
     n_sm = _kernels._n_sm(torch.device("cuda"))
     rng = np.random.default_rng(0)
-    for h, w, iters in ((288, 384, 50), (1992, 3008, 5)):
+    for h, w, d, iters in SHAPES:
+        cfg = StereoConfig(d_min=-(d - 1), d_max=0)
+        stream = dataclasses.replace(cfg, stream=True)
         g1, g2 = (torch.from_numpy(rng.integers(0, 256, (1, h, w), dtype=np.uint8)).cuda()
                   for _ in range(2))
+        tag = f"{h}x{w} D={d}"
+        calls = {"K1": lambda: guided_wta_fused(g1[0], g2[0], cfg.d_min, stream),
+                 "K3": lambda: guided_wta_fused(g1[0], g2[0], cfg.d_min, cfg)}
+        if d == 16:
+            dl = torch.from_numpy(rng.integers(cfg.d_min, 1, (h, w)).astype(np.float32)).cuda()
+            dr = torch.from_numpy(rng.integers(0, d, (h, w)).astype(np.float32)).cuda()
+            for got, want in zip(lr_fill_fused(dl, dr, cfg), lr_fill_reference(dl, dr, cfg)):
+                assert torch.equal(got, want), "K2 is not bit-identical to its plain version"
+            calls["K2"] = lambda: lr_fill_fused(dl, dr, cfg)
+        for name, call in calls.items():
+            n = iters * (20 if name == "K2" else 1)
+            print(f"{tag}: wrapper {name} {cuda_ms(call, n):.4f} ms, device "
+                  f"{device_ms(call, n, KERNELS[name]):.4f} ms")
+        if args.wrappers_only:
+            continue
+
+        best_p, dmap_p = guided_wta_fused_reference(g1, g2, cfg.d_min, cfg)
         best = torch.empty((1, h, w), dtype=torch.float32, device="cuda")
         dmap = torch.empty_like(best)
-        k3 = cuda_ms(lambda: _kernels.guided_wta(g1, g2, best, dmap, *args), iters)
-        print(f"{h}x{w} D={cfg.size_d}: K3 {k3:.4f} ms")
-        for tw in (32, 64):
-            pick = _kernels.guided_wta_stream_band_rows(cfg.radius, cfg.size_d, h, w,
-                                                        n_sm, tw)
-            for band in BANDS:
-                smem = lib.guided_wta_stream_smem_bytes(tw, cfg.radius, band, cfg.size_d)
-                if smem > _kernels._SMEM_LIMIT:
+        launch = (cfg.d_min, d, cfg.radius, cost_constants(cfg), cfg.eps)
+
+        def k1(**shape):
+            _kernels.guided_wta_stream(g1, g2, best, dmap, *launch, **shape)
+
+        picks = {}
+        for v in VARIANTS:
+            key = tuple(v.values())
+            pick = picks[key] = _kernels.guided_wta_stream_band_rows(
+                cfg.radius, d, h, w, n_sm, v["step"], v["tile_w"], v["l2"])
+            k1(band=pick, **v)
+            mism = int((dmap != dmap_p).sum())
+            err = float((best - best_p).abs().max())
+            print(f"{tag}: K1 check {v} band {pick}: {mism} flips (bound "
+                  f"{max(4, int(2e-3 * h * w))}), max |best-plain| {err:.3g}")
+            assert mism <= max(4, 2e-3 * h * w)
+            torch.testing.assert_close(best, best_p, atol=2e-3, rtol=1e-4)
+            for band in _kernels._WALK_BANDS:
+                smem = lib.guided_wta_stream_smem_bytes(v["tile_w"], cfg.radius, band, d,
+                                                        v["step"], v["l2"])
+                per_sm = _kernels.smem_ctas_per_sm(smem)
+                if smem > _kernels._SMEM_LIMIT or per_sm < 2:
                     continue
-                ms = cuda_ms(lambda: _kernels.guided_wta_stream(
-                    g1, g2, best, dmap, *args, band=band, tile_w=tw), iters)
-                mark = "  (picked)" if band == pick else ""
-                print(f"{h}x{w} D={cfg.size_d}: K1 tile {tw} band {band} smem {smem} B: "
-                      f"{ms:.4f} ms{mark}")
+                ms = cuda_ms(lambda: k1(band=band, **v), iters)
+                print(f"{tag}: K1 {v} band {band}, {-(-w // v['tile_w']) * -(-h // band)} "
+                      f"CTAs, smem {smem} B ({per_sm} CTAs/SM by smem): {ms:.4f} ms"
+                      + ("  (picked)" if band == pick else ""))
+        for tw in (32, 64):
+            for st in (16, 8):
+                order = [dict(tile_w=tw, step=st, runs=r, l2=False) for r in RUNS + RUNS[::-1]]
+                turns = [cuda_ms(lambda: k1(band=picks[tuple(v.values())], **v), iters)
+                         for v in order]
+                print(f"{tag}: K1 tile {tw} step {st}, runs {' '.join(str(v['runs']) for v in order)} "
+                      "in turns: " + " ".join(f"{ms:.4f}" for ms in turns) + " ms")
+        order = TURNS + TURNS[::-1]
+        turns = [cuda_ms(lambda: k1(band=picks[tuple(v.values())], **v), iters) for v in order]
+        print(f"{tag}: K1 in turns at the picked bands: "
+              + "; ".join(f"{v} {ms:.4f}" for v, ms in zip(order, turns)) + " ms")
+        if d == 16:
+            occ_p, filled_p = lr_fill_reference(dl, dr, cfg)
+            occ, filled = torch.empty_like(dl), torch.empty_like(dl)
+            rpcs = [r for r in (1, 2, 4, 8)
+                    if r * lib.lr_fill_smem_bytes(w) <= _kernels._SMEM_LIMIT]
+
+            def k2(rpc):
+                _kernels.lr_fill(dl, dr, occ, filled, cfg.d_min, d, cfg.d_lr,
+                                 cfg.d_occlusion, cfg.v_min, rows_per_cta=rpc)
+
+            for rpc in rpcs:
+                k2(rpc)
+                assert torch.equal(occ, occ_p) and torch.equal(filled, filled_p), rpc
+            order = rpcs + rpcs[::-1]
+            turns = [cuda_ms(lambda: k2(rpc), 20 * iters) for rpc in order]
+            print(f"{tag}: K2 rows per CTA in turns (each bit-identical): "
+                  + "; ".join(f"{rpc} {ms:.4f}" for rpc, ms in zip(order, turns)) + " ms")
+        del g1, g2, best, dmap
     return 0
 
 

@@ -5,10 +5,11 @@
 // the left and the right view's matching in one pass, from one raw cost
 // slice per disparity.
 //
-// Window sums.  K1, the guide statistics of every kernel and the last
-// y-pass of K3 and K4 sum each window directly (window_sums, x_sums).
-// The other per-slice box passes of K3 and K4, and passes 3-6 of K5, sum
-// runs of kRun windows from one direct seed (run_sums, x_runs).
+// Window sums.  The guide statistics of every kernel, the last y-pass of
+// K3 and K4 and K1's y-pass to a/b sum each window directly
+// (window_sums, x_sums).  The other per-slice box passes of K3 and K4,
+// passes 3-6 of K5 and passes 2, 4 and 5 of K1 sum runs of kRun windows
+// from one direct seed (run_sums, x_runs, run_sums1).
 //
 // Dual-view kernels.  The raw slice.  For left label d the truncated AD + gradient cost at
 // global column x is raw(x) = F(I_l(x), I_r(x + d)).  The right view's
@@ -44,8 +45,8 @@ constexpr int kBlockY = 8;       // the block is kTileW x kBlockY threads
 constexpr int kThreads = kTileW * kBlockY;
 constexpr int kRB = 4;           // adjacent windows one thread sums at once
 // Windows per run of the sliding box passes: float runs of 8 beat 4, 12
-// and 16 and runs added in double on K3 (PERF.md, Findings: K3
-// redesigned in three checked stages).
+// and 16 and runs added in double on K3 (PERF.md, Findings: K3, K4
+// and K5 redesigned).
 constexpr int kRun = 8;
 
 // Block height of a TH-row tile (K3, K4): 16 (512 threads, two CTAs and
@@ -90,7 +91,7 @@ __device__ inline void window_sums(Load at, int k, int nv, Acc (&out)[RB]) {
 
 // The same over src[0], src[stride], src[2 * stride], ...: K3 and K4 ran
 // faster on this form, K5 on the loader form (PERF.md, Findings: the
-// dual-view path, one header).
+// port and what it taught).
 template <int RB, typename Acc>
 __device__ inline void window_sums(const float* __restrict__ src, int stride,
                                    int k, int nv, Acc (&out)[RB]) {
@@ -187,6 +188,15 @@ __device__ inline void run_sums(LA a, LB b, int k, int nv, Emit emit) {
     sb += b(k + i - 1) - lb[i - 1];
     emit(i, sa, sb);
   }
+}
+
+// The sum of one plane's run: run_sums over a plane of zeros beside it,
+// whose sums the compiler drops.  The passes of the row walks (K1, K5)
+// that take one plane per task use it, to keep their task counts up.
+template <typename L, typename Emit>
+__device__ inline void run_sums1(L a, int k, int nv, Emit emit) {
+  run_sums<kRun>(a, [](int) { return 0.f; }, k, nv,
+                 [&](int i, float sa, float) { emit(i, sa); });
 }
 
 // x-window sums of two planes in runs of kRun: dst[r][c] = sum_j

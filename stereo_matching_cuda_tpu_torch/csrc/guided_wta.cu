@@ -53,13 +53,14 @@
 // K1 (guided_wta_stream.cu) walks rows down a band instead and pays the
 // y halo once per band.
 //
-// What each redesign stage changed (PERF.md, Findings, PR 5).  Stage 1:
-// 32 x 16 blocks instead of 32 x 8, twice the warps per SM (-15% at
-// 6 MP); the 16-row tile that would give a 288x384 frame a CTA per SM ran
-// slower than the 32-row one, so the tile stays tallest-first.  Stage 2,
-// derivatives cached per tile, ran 5-9% slower and was reverted: its
-// int16 caches fit beside two CTAs per SM only with I*cost formed in the
-// x-pass at every read.  Stage 3: the runs above (-17% at 6 MP).
+// What each redesign stage changed (PERF.md, Findings: K3, K4 and K5
+// redesigned).  Stage 1: 32 x 16 blocks instead of 32 x 8, twice the warps
+// per SM (-15% at 6 MP); the 16-row tile that would give a 288x384 frame a
+// CTA per SM ran slower than the 32-row one, so the tile stays
+// tallest-first.  Stage 2, derivatives cached per tile, ran 5-9% slower
+// and was reverted: its int16 caches fit beside two CTAs per SM only with
+// I*cost formed in the x-pass at every read.  Stage 3: the runs above
+// (-17% at 6 MP).
 
 #include "guided_common.cuh"
 

@@ -47,7 +47,7 @@
 // threads with 8-row steps at three CTAs per SM.  On that first shape
 // runs of 8 left half the block idle in passes 4-6 and ran 4% slower
 // than direct sums; on this one they beat direct sums of 4 by 4%
-// (PERF.md, Findings: K4 and K5 redesigned).
+// (PERF.md, Findings: K3, K4 and K5 redesigned).
 //
 // What bounds it on the H100.  Shared-memory latency and issue, as K4,
 // with the y halo ratio of the cost cut from (TH+4R)/TH to
@@ -56,8 +56,7 @@
 // the band's input windows: at R=9, D=16, 16-row steps, 112,616 bytes at
 // band 96, two CTAs per SM.  Keeping the band-sized planes in shared
 // memory instead capped the band at 24 rows for two CTAs per SM and
-// measured 1.5x slower (PERF.md, Findings: the dual-view path, K5's
-// strip carry).
+// measured 1.5x slower (PERF.md, Findings: the port and what it taught).
 
 #include "guided_common.cuh"
 
@@ -110,14 +109,6 @@ __host__ inline size_t smem_bytes(int R, int band, int reach, int step) {
 __host__ __device__ inline size_t guide_floats(int R, int band) {
   const Geom g = geometry(R, band, 0, 1);
   return 4 * (size_t)g.MB * g.MC;
-}
-
-// The sum of one plane's run: run_sums over a plane of zeros beside it,
-// whose sums the compiler drops.
-template <typename L, typename Emit>
-__device__ inline void run_sums1(L a, int k, int nv, Emit emit) {
-  run_sums<kRun>(a, [](int) { return 0.f; }, k, nv,
-                 [&](int i, float sa, float) { emit(i, sa); });
 }
 
 template <int STEP>

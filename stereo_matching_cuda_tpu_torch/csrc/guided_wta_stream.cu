@@ -41,7 +41,8 @@ namespace {
 
 using namespace guided;
 
-constexpr int kStep = 8;             // rows one step of the walk adds
+constexpr int kBY = 16;              // the block is kTileW x kBY threads
+constexpr int kNT = kTileW * kBY;    // its threads
 
 struct Geom {
   int P;        // 2R
@@ -51,12 +52,13 @@ struct Geom {
   int I1C, I2C; // guide window width (EC + 2), match window width (EC + D + 1)
   int NR;       // cost rows of the band: band + 4R
   int MB;       // a/b rows of the band: band + 2R
-  int RING;     // rows of each x-sum ring: 2R + kStep
+  int RING;     // rows of each x-sum ring: 2R + step
   int walk;     // floats of the per-step buffers
   int CH;       // guide rows per chunk: 2 x (CH + 2R) x PM floats fit `walk`
 };
 
-__host__ __device__ inline Geom geometry(int TW, int R, int band, int D) {
+// step: rows one step of the walk adds.
+__host__ __device__ inline Geom geometry(int TW, int R, int band, int D, int step) {
   Geom g;
   g.P = 2 * R;
   g.EC = TW + 2 * g.P;
@@ -68,38 +70,52 @@ __host__ __device__ inline Geom geometry(int TW, int R, int band, int D) {
   g.I2C = g.EC + D + 1;
   g.NR = band + 2 * g.P;
   g.MB = band + g.P;
-  g.RING = g.P + kStep;
-  g.walk = 2 * kStep * g.PE + 2 * g.RING * g.PM + 2 * kStep * g.PM
-         + 2 * g.RING * g.PQ + 2 * kStep * g.PQ;
-  g.CH = g.walk / (2 * g.PM) - g.P;   // >= kStep: the X1 rings alone are 2 x RING x PM
+  g.RING = g.P + step;
+  g.walk = 2 * step * g.PE + 2 * g.RING * g.PM + 2 * step * g.PM
+         + 2 * g.RING * g.PQ + 2 * step * g.PQ;
+  g.CH = g.walk / (2 * g.PM) - g.P;   // >= step: the X1 rings alone are 2 x RING x PM
   return g;
 }
 
-__host__ inline size_t smem_bytes(int TW, int R, int band, int D) {
-  const Geom g = geometry(TW, R, band, D);
-  return ((size_t)g.walk + 2 * (size_t)g.MB * g.MC) * sizeof(float)
+// l2: the band's guide statistics in a per-CTA device scratch (read from
+// L2), not in shared memory.
+__host__ inline size_t smem_bytes(int TW, int R, int band, int D, int step, bool l2) {
+  const Geom g = geometry(TW, R, band, D, step);
+  return ((size_t)g.walk + (l2 ? 0 : 2 * (size_t)g.MB * g.MC)) * sizeof(float)
          + (size_t)g.NR * (g.I1C + g.I2C);
 }
 
-template <int TW>
-__global__ void __launch_bounds__(kThreads)
+// Floats of one CTA's guide statistics (mean_I, c over the band's M rows).
+__host__ __device__ inline size_t guide_floats(int TW, int R, int band) {
+  const Geom g = geometry(TW, R, band, 0, 1);
+  return 2 * (size_t)g.MB * g.MC;
+}
+
+// RUNS: the box passes 2-5 that sum runs of kRun windows (bit 0: pass 2,
+// bit 1: pass 3, bit 2: pass 4, bit 3: pass 5); the others sum each
+// window directly, kRB at a time.
+template <int TW, int STEP, int RUNS, bool GL2>
+__global__ void __launch_bounds__(kNT, 2)
 guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
                          const uint8_t* __restrict__ gray2,
                          float* __restrict__ best_out,
-                         float* __restrict__ dmap_out, Params p, int band) {
+                         float* __restrict__ dmap_out, float* scratch, Params p, int band) {
   extern __shared__ float smem[];
-  const Geom g = geometry(TW, p.R, band, p.D);
+  const Geom g = geometry(TW, p.R, band, p.D, STEP);
   const int P = g.P, R = p.R, H = p.H, W = p.W, RING = g.RING, PQ = g.PQ;
   const int k = 2 * R + 1;
-  float* cost = smem;                        // cost, I*cost: kStep x PE each
-  float* x1 = cost + 2 * kStep * g.PE;       // their x-sums: 2 rings of RING x PM
-  float* ab = x1 + 2 * RING * g.PM;          // a, b: kStep x PM each
-  float* x2 = ab + 2 * kStep * g.PM;         // their x-sums: 2 rings of RING x PQ
-  float* qs = x2 + 2 * RING * PQ;            // box(a), box(b): kStep x PQ each
+  float* cost = smem;                        // cost, I*cost: STEP x PE each
+  float* x1 = cost + 2 * STEP * g.PE;        // their x-sums: 2 rings of RING x PM
+  float* ab = x1 + 2 * RING * g.PM;          // a, b: STEP x PM each
+  float* x2 = ab + 2 * STEP * g.PM;          // their x-sums: 2 rings of RING x PQ
+  float* qs = x2 + 2 * RING * PQ;            // box(a), box(b): STEP x PQ each
   float* gsum = smem;                        // guide x-sums (2 x (CH + 2R) x PM), before the walk
-  float* mean_i = smem + g.walk;             // guide statistics: MB x MC each
+  // Guide statistics, MB x MC each: in shared memory, or (GL2) in this
+  // CTA's part of the scratch, written once and read from L2 by every slice.
+  const size_t cta = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  float* mean_i = GL2 ? scratch + cta * guide_floats(TW, p.R, band) : smem + g.walk;
   float* c_i = mean_i + g.MB * g.MC;
-  uint8_t* i1s = reinterpret_cast<uint8_t*>(c_i + g.MB * g.MC);   // NR x I1C
+  uint8_t* i1s = reinterpret_cast<uint8_t*>(smem + g.walk + (GL2 ? 0 : 2 * g.MB * g.MC));  // NR x I1C
   uint8_t* i2s = i1s + g.NR * g.I1C;                                // NR x I2C
 
   const size_t frame = (size_t)blockIdx.z * H * W;
@@ -114,7 +130,7 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
 
   // Input windows of the whole band, zero outside the image.  i1s column
   // c holds global column xe - 1 + c; i2s column c holds xe + dmin - 1 + c.
-  for (int r = threadIdx.y; r < g.NR; r += kBlockY) {
+  for (int r = threadIdx.y; r < g.NR; r += kBY) {
     const int gy = ye + r;
     const bool row_in = gy >= 0 && gy < H;
     for (int c = threadIdx.x; c < g.I1C; c += kTileW) {
@@ -136,7 +152,7 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
     float* sb = gsum + (g.CH + P) * g.PM;
     {
       const int nblk = (g.MC + kRB - 1) / kRB;
-      for (int t = tid; t < rows * nblk; t += kThreads) {
+      for (int t = tid; t < rows * nblk; t += kNT) {
         const int r = t % rows, c0 = (t / rows) * kRB;
         const int nv = min(kRB, g.MC - c0);
         const uint8_t* src = i1s + (m0 + r) * g.I1C + 1 + c0;
@@ -153,7 +169,7 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
     }
     __syncthreads();
     const int nblk = (nm + kRB - 1) / kRB;
-    for (int t = tid; t < g.MC * nblk; t += kThreads) {
+    for (int t = tid; t < g.MC * nblk; t += kNT) {
       const int c = t % g.MC, r0 = (t / g.MC) * kRB;
       const int nv = min(kRB, nm - r0);
       double s1[kRB], s2[kRB];
@@ -173,16 +189,16 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
     __syncthreads();
   }
 
-  const int nsteps = (g.NR + kStep - 1) / kStep;
+  const int nsteps = (g.NR + STEP - 1) / STEP;
   for (int s = 0; s < p.D; ++s) {
     const int d = p.dmin + s;
     for (int t = 0; t < nsteps; ++t) {
-      const int i0 = t * kStep;               // E row of the step's first new row
-      const int ns = min(kStep, g.NR - i0);
+      const int i0 = t * STEP;                // E row of the step's first new row
+      const int ns = min(STEP, g.NR - i0);
 
       // 1. cost and I*cost of the new rows over E (zero outside the
       // image, the out-of-range class where the match column leaves [0, W)).
-      for (int e = tid; e < ns * g.EC; e += kThreads) {
+      for (int e = tid; e < ns * g.EC; e += kNT) {
         const int lr = e / g.EC, c = e % g.EC, r = i0 + lr;
         const int gy = ye + r, gx = xe + c;
         float cv = 0.f, iv = 0.f;
@@ -195,19 +211,30 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
                    : raw_cost(q1, gx, i2s + r * g.I2C + c + s + 1, gx2, p);
         }
         cost[lr * g.PE + c] = cv;
-        cost[(kStep + lr) * g.PE + c] = iv * cv;
+        cost[(STEP + lr) * g.PE + c] = iv * cv;
       }
       __syncthreads();
 
       // 2. x-sums of both planes into ring X1 (slot = E row % RING).
-      {
+      if constexpr ((RUNS & 1) != 0) {
+        // In runs, one plane per task.
+        const int nrun = (g.MC + kRun - 1) / kRun;
+        for (int e = tid; e < ns * nrun * 2; e += kNT) {
+          const int lr = e % ns, rest = e / ns;
+          const int c0 = (rest % nrun) * kRun, pl = rest / nrun;
+          const float* src = cost + (pl * STEP + lr) * g.PE + c0;
+          float* dst = x1 + (pl * RING + (i0 + lr) % RING) * g.PM + c0;
+          run_sums1([&](int j) { return src[j]; }, k, min(kRun, g.MC - c0),
+                    [&](int i, float sx) { dst[i] = sx; });
+        }
+      } else {
         const int nblk = (g.MC + kRB - 1) / kRB;
-        for (int e = tid; e < ns * nblk; e += kThreads) {
+        for (int e = tid; e < ns * nblk; e += kNT) {
           const int lr = e % ns, c0 = (e / ns) * kRB;
           const int nv = min(kRB, g.MC - c0);
           float s1[kRB], s2[kRB];
           window_sums<kRB>(cost + lr * g.PE + c0, 1, k, nv, s1);
-          window_sums<kRB>(cost + (kStep + lr) * g.PE + c0, 1, k, nv, s2);
+          window_sums<kRB>(cost + (STEP + lr) * g.PE + c0, 1, k, nv, s2);
           float* da = x1 + ((i0 + lr) % RING) * g.PM + c0;
           float* db = da + RING * g.PM;
 #pragma unroll
@@ -225,31 +252,49 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
       const int m_lo = max(0, i0 - P), m_hi = min(g.MB, i0 + ns - P);
       const int nm = m_hi - m_lo;
       if (nm > 0) {
-        const int nblk = (nm + kRB - 1) / kRB;
-        for (int e = tid; e < g.MC * nblk; e += kThreads) {
-          const int c = e % g.MC, m0 = m_lo + (e / g.MC) * kRB;
-          const int nv = min(kRB, m_hi - m0);
-          const float* ra = x1 + c;
-          const float* rb = ra + RING * g.PM;
-          const int slot0 = m0 % RING;
-          auto ring = [&](const float* plane, int j) {
-            int sl = slot0 + j;
-            if (sl >= RING) sl -= RING;
-            return plane[sl * g.PM];
-          };
-          float s1[kRB], s2[kRB];
-          window_sums<kRB>([&](int j) { return ring(ra, j); }, k, nv, s1);
-          window_sums<kRB>([&](int j) { return ring(rb, j); }, k, nv, s2);
+        const float* ra = x1;
+        const float* rb = x1 + RING * g.PM;
+        auto ab_of = [&](int m, int c, float s1, float s2) {
+          const int gy = ym + m, gx = xm + c;
+          float a = 0.f, b = 0.f;
+          if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+            guided_ab(s1, s2, window_area(gy, gx, H, W, R), mean_i[m * g.MC + c],
+                      c_i[m * g.MC + c], a, b);
+          ab[(m - m_lo) * g.PM + c] = a;
+          ab[(STEP + m - m_lo) * g.PM + c] = b;
+        };
+        if constexpr ((RUNS & 2) != 0) {
+          // One run per kRun rows down a column.
+          const int nrun = (nm + kRun - 1) / kRun;
+          for (int e = tid; e < g.MC * nrun; e += kNT) {
+            const int c = e % g.MC, m0 = m_lo + (e / g.MC) * kRun;
+            const int slot0 = m0 % RING;
+            auto ring = [&](const float* plane, int j) {
+              int sl = slot0 + j;
+              if (sl >= RING) sl -= RING;
+              return plane[sl * g.PM + c];
+            };
+            run_sums<kRun>([&](int j) { return ring(ra, j); },
+                           [&](int j) { return ring(rb, j); }, k, min(kRun, m_hi - m0),
+                           [&](int i, float s1, float s2) { ab_of(m0 + i, c, s1, s2); });
+          }
+        } else {
+          const int nblk = (nm + kRB - 1) / kRB;
+          for (int e = tid; e < g.MC * nblk; e += kNT) {
+            const int c = e % g.MC, m0 = m_lo + (e / g.MC) * kRB;
+            const int nv = min(kRB, m_hi - m0);
+            const int slot0 = m0 % RING;
+            auto ring = [&](const float* plane, int j) {
+              int sl = slot0 + j;
+              if (sl >= RING) sl -= RING;
+              return plane[sl * g.PM + c];
+            };
+            float s1[kRB], s2[kRB];
+            window_sums<kRB>([&](int j) { return ring(ra, j); }, k, nv, s1);
+            window_sums<kRB>([&](int j) { return ring(rb, j); }, k, nv, s2);
 #pragma unroll
-          for (int i = 0; i < kRB; ++i) {
-            if (i >= nv) break;
-            const int m = m0 + i, gy = ym + m, gx = xm + c;
-            float a = 0.f, b = 0.f;
-            if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-              guided_ab(s1[i], s2[i], window_area(gy, gx, H, W, R),
-                        mean_i[m * g.MC + c], c_i[m * g.MC + c], a, b);
-            ab[(m - m_lo) * g.PM + c] = a;
-            ab[(kStep + m - m_lo) * g.PM + c] = b;
+            for (int i = 0; i < kRB; ++i)
+              if (i < nv) ab_of(m0 + i, c, s1[i], s2[i]);
           }
         }
       }
@@ -258,15 +303,28 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
       // 4. x-sums of a, b over the tile columns into ring X2 (slot = M
       // row % RING).
       if (nm > 0) {
-        constexpr int nblk = TW / kRB;
-        for (int e = tid; e < nm * nblk * 2; e += kThreads) {
-          const int lr = e % nm, rest = e / nm;
-          const int c0 = (rest % nblk) * kRB, pl = rest / nblk;
-          float sx[kRB];
-          window_sums<kRB>(ab + (pl * kStep + lr) * g.PM + c0, 1, k, kRB, sx);
-          float* dst = x2 + pl * RING * PQ + ((m_lo + lr) % RING) * PQ + c0;
+        if constexpr ((RUNS & 4) != 0) {
+          // In runs, one plane per task.
+          constexpr int nrun = TW / kRun;
+          for (int e = tid; e < nm * nrun * 2; e += kNT) {
+            const int lr = e % nm, rest = e / nm;
+            const int c0 = (rest % nrun) * kRun, pl = rest / nrun;
+            const float* src = ab + (pl * STEP + lr) * g.PM + c0;
+            float* dst = x2 + (pl * RING + (m_lo + lr) % RING) * PQ + c0;
+            run_sums1([&](int j) { return src[j]; }, k, kRun,
+                      [&](int i, float sx) { dst[i] = sx; });
+          }
+        } else {
+          constexpr int nblk = TW / kRB;
+          for (int e = tid; e < nm * nblk * 2; e += kNT) {
+            const int lr = e % nm, rest = e / nm;
+            const int c0 = (rest % nblk) * kRB, pl = rest / nblk;
+            float sx[kRB];
+            window_sums<kRB>(ab + (pl * STEP + lr) * g.PM + c0, 1, k, kRB, sx);
+            float* dst = x2 + pl * RING * PQ + ((m_lo + lr) % RING) * PQ + c0;
 #pragma unroll
-          for (int i = 0; i < kRB; ++i) dst[i] = sx[i];
+            for (int i = 0; i < kRB; ++i) dst[i] = sx[i];
+          }
         }
       }
       __syncthreads();
@@ -277,22 +335,39 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
       const int o_lo = max(0, m_lo - P), o_hi = min(band, m_hi - P);
       const int nq = o_hi - o_lo;
       if (nq > 0) {
-        const int nblk = (nq + kRB - 1) / kRB;
-        for (int e = tid; e < TW * nblk * 2; e += kThreads) {
-          const int c = e % TW, rest = e / TW;
-          const int o0 = o_lo + (rest % nblk) * kRB, pl = rest / nblk;
-          const int nv = min(kRB, o_hi - o0);
-          const float* plane = x2 + pl * RING * PQ + c;
-          const int slot0 = o0 % RING;
-          float sy[kRB];
-          window_sums<kRB>([&](int j) {
-            int sl = slot0 + j;
-            if (sl >= RING) sl -= RING;
-            return plane[sl * PQ];
-          }, k, nv, sy);
+        if constexpr ((RUNS & 8) != 0) {
+          // One run per kRun rows down a column, one plane per task.
+          const int nrun = (nq + kRun - 1) / kRun;
+          for (int e = tid; e < TW * nrun * 2; e += kNT) {
+            const int c = e % TW, rest = e / TW;
+            const int o0 = o_lo + (rest % nrun) * kRun, pl = rest / nrun;
+            const float* plane = x2 + pl * RING * PQ + c;
+            const int slot0 = o0 % RING;
+            float* dst = qs + (pl * STEP + o0 - o_lo) * PQ + c;
+            run_sums1([&](int j) {
+              int sl = slot0 + j;
+              if (sl >= RING) sl -= RING;
+              return plane[sl * PQ];
+            }, k, min(kRun, o_hi - o0), [&](int i, float sy) { dst[i * PQ] = sy; });
+          }
+        } else {
+          const int nblk = (nq + kRB - 1) / kRB;
+          for (int e = tid; e < TW * nblk * 2; e += kNT) {
+            const int c = e % TW, rest = e / TW;
+            const int o0 = o_lo + (rest % nblk) * kRB, pl = rest / nblk;
+            const int nv = min(kRB, o_hi - o0);
+            const float* plane = x2 + pl * RING * PQ + c;
+            const int slot0 = o0 % RING;
+            float sy[kRB];
+            window_sums<kRB>([&](int j) {
+              int sl = slot0 + j;
+              if (sl >= RING) sl -= RING;
+              return plane[sl * PQ];
+            }, k, nv, sy);
 #pragma unroll
-          for (int i = 0; i < kRB; ++i)
-            if (i < nv) qs[(pl * kStep + o0 + i - o_lo) * PQ + c] = sy[i];
+            for (int i = 0; i < kRB; ++i)
+              if (i < nv) qs[(pl * STEP + o0 + i - o_lo) * PQ + c] = sy[i];
+          }
         }
       }
       __syncthreads();
@@ -302,13 +377,13 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
       // it: the next step writes cost, X1, ab and X2 first and qs only
       // after four barriers; each output has one owner thread, the same
       // in every slice.
-      for (int e = tid; e < nq * TW; e += kThreads) {
+      for (int e = tid; e < nq * TW; e += kNT) {
         const int lr = e / TW, c = e % TW, o = o_lo + lr;
         const int gy = y0 + o, gx = x0 + c;
         if (gy >= H || gx >= W) continue;
         const float area = window_area(gy, gx, H, W, R);
         const float iv = (float)i1s[(o + P) * g.I1C + c + P + 1];
-        const float q = (qs[lr * PQ + c] / area) * iv + qs[(kStep + lr) * PQ + c] / area;
+        const float q = (qs[lr * PQ + c] / area) * iv + qs[(STEP + lr) * PQ + c] / area;
         const size_t at = (size_t)gy * W + gx;
         const float b = s ? best_out[at] : best_init();
         if (b >= q) {
@@ -323,37 +398,51 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
   }
 }
 
-template <int TW>
+template <int TW, int STEP, int RUNS, bool GL2>
 cudaError_t launch(const uint8_t* gray1, const uint8_t* gray2, float* best,
-                   float* dmap, int N, int band, const Params& p,
+                   float* dmap, float* scratch, int N, int band, const Params& p,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes(TW, p.R, band, p.D);
+  const size_t smem = smem_bytes(TW, p.R, band, p.D, STEP, GL2);
   cudaError_t err = cudaFuncSetAttribute(
-      guided_wta_stream_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      guided_wta_stream_kernel<TW, STEP, RUNS, GL2>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.W + TW - 1) / TW, (p.H + band - 1) / band, N);
-  guided_wta_stream_kernel<TW><<<grid, dim3(kTileW, kBlockY), smem, stream>>>(
-      gray1, gray2, best, dmap, p, band);
+  guided_wta_stream_kernel<TW, STEP, RUNS, GL2><<<grid, dim3(kTileW, kBY), smem, stream>>>(
+      gray1, gray2, best, dmap, scratch, p, band);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Dynamic shared memory K1 needs for a tile width (32 or 64), a radius, a
-// band height and a slice count (bytes).  The wrapper picks the band with it.
-extern "C" long long guided_wta_stream_smem_bytes(int TW, int R, int band, int D) {
-  return (long long)smem_bytes(TW, R, band, D);
+// band height, a slice count, a step of `step` rows and the guide
+// statistics in shared memory (l2 = 0) or in the scratch (bytes).  The
+// wrapper picks the step and the band with it.
+extern "C" long long guided_wta_stream_smem_bytes(int TW, int R, int band, int D, int step,
+                                                  int l2) {
+  return (long long)smem_bytes(TW, R, band, D, step, l2 != 0);
+}
+
+// Bytes of device scratch one K1 launch with l2 needs (the guide
+// statistics of every CTA) for N frames of H x W.
+extern "C" long long guided_wta_stream_scratch_bytes(int TW, int R, int band, int N, int H,
+                                                     int W) {
+  const long long ctas = (long long)((W + TW - 1) / TW) * ((H + band - 1) / band) * N;
+  return ctas * (long long)(guide_floats(TW, R, band) * sizeof(float));
 }
 
 // Launches K1 on `stream`.  gray1/gray2: uint8 (N, H, W) contiguous;
-// best/dmap: float32 (N, H, W).  TW (output columns per CTA) must be 32
-// or 64, band (output rows per CTA) >= 1.  Returns the CUDA error of the
-// launch (0 on success).
+// best/dmap: float32 (N, H, W); scratch: device memory of
+// guided_wta_stream_scratch_bytes when l2.  The shapes measured: TW 32 or
+// 64 output columns per CTA, band >= 1 output rows per CTA, step 16 or 8,
+// runs (the passes that sum runs) and l2 as in the K1_CASE list below.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int guided_wta_stream_launch(const void* gray1, const void* gray2,
-                                        void* best, void* dmap, int N, int H,
+                                        void* best, void* dmap, void* scratch, int N, int H,
                                         int W, int dmin, int D, int R, int TW,
-                                        int band, float one_m_alpha, float alpha,
+                                        int band, int step, int runs, int l2,
+                                        float one_m_alpha, float alpha,
                                         float th_color, float th_grad, float oob,
                                         double eps, void* stream) {
   if (band < 1) return (int)cudaErrorInvalidValue;
@@ -363,10 +452,28 @@ extern "C" int guided_wta_stream_launch(const void* gray1, const void* gray2,
   const auto* g2 = static_cast<const uint8_t*>(gray2);
   auto* b = static_cast<float*>(best);
   auto* m = static_cast<float*>(dmap);
+  auto* sc = static_cast<float*>(scratch);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (TW) {
-    case 32: return (int)launch<32>(g1, g2, b, m, N, band, p, st);
-    case 64: return (int)launch<64>(g1, g2, b, m, N, band, p, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define K1_CASE(tw, st_, runs_, l2_)                                                   \
+  if (TW == tw && step == st_ && runs == runs_ && (l2 != 0) == l2_)                    \
+    return (int)launch<tw, st_, runs_, l2_>(g1, g2, b, m, sc, N, band, p, st);
+  K1_CASE(32, 16, 0, false)
+  K1_CASE(32, 16, 13, false)
+  K1_CASE(32, 16, 15, false)
+  K1_CASE(32, 8, 0, false)
+  K1_CASE(32, 8, 13, false)
+  K1_CASE(32, 8, 15, false)
+  K1_CASE(64, 16, 0, false)
+  K1_CASE(64, 16, 13, false)
+  K1_CASE(64, 16, 15, false)
+  K1_CASE(64, 8, 0, false)
+  K1_CASE(64, 8, 13, false)
+  K1_CASE(64, 8, 15, false)
+  K1_CASE(32, 16, 15, true)
+  K1_CASE(64, 16, 15, true)
+  K1_CASE(64, 16, 13, true)
+  K1_CASE(64, 8, 15, true)
+  K1_CASE(64, 8, 13, true)
+#undef K1_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,10 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
   K1 guided_wta_stream.cu       one view, row walk down a band
-                                (guided_wta_stream)
-  K2 lr_fill.cu                 LR check + occlusion fill (lr_fill)
+                                (guided_wta_stream): K5's blocks, steps
+                                and bands, 64-column tiles
+  K2 lr_fill.cu                 LR check + occlusion fill (lr_fill), rows
+                                staged in shared memory, two a CTA
   K3 guided_wta.cu              one view, tiled (guided_wta): 32-column
                                 tiles of 32, 16 or 8 rows, the tallest
                                 of those that fit the most CTAs per SM
@@ -56,10 +58,11 @@ _LAUNCH_ARGS = [_I] * 7 + [_F] * 5 + [ctypes.c_double, _P]
 _SIGNATURES = {
     "guided_wta_launch": (_I, [_P] * 4 + _LAUNCH_ARGS),
     "guided_wta_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
-    "guided_wta_stream_launch": (_I, [_P] * 4 + [_I] * 8 + [_F] * 5
+    "guided_wta_stream_launch": (_I, [_P] * 5 + [_I] * 11 + [_F] * 5
                                  + [ctypes.c_double, _P]),
-    "guided_wta_stream_smem_bytes": (ctypes.c_longlong, [_I] * 4),
-    "lr_fill_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "guided_wta_stream_smem_bytes": (ctypes.c_longlong, [_I] * 6),
+    "guided_wta_stream_scratch_bytes": (ctypes.c_longlong, [_I] * 6),
+    "lr_fill_launch": (_I, [_P, _P, _P, _P] + [_I] * 8 + [_P]),
     "lr_fill_smem_bytes": (ctypes.c_longlong, [_I]),
     "guided_wta_dual_launch": (_I, [_P] * 7 + _LAUNCH_ARGS),
     "guided_wta_dual_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
@@ -150,10 +153,11 @@ _SMEM_PER_SM = 233_472
 _SMEM_RESERVED_PER_BLOCK = 1_024
 
 # CTAs per SM each kernel's tile or band is sized for: occupancy first,
-# then height (PERF.md, Findings: K3 redesigned, K4 and K5 redesigned).
-# The 512-thread blocks of K3, K4 and K5 are built for two
+# then height (PERF.md, Findings: K3, K4 and K5 redesigned).  The
+# 512-thread blocks of K1, K3, K4 and K5 are built for two
 # (``__launch_bounds__(512, 2)``: at most 64 registers a thread), and so
 # are K3's and K4's 256-thread blocks of 8-row tiles.
+_K1_CTAS_PER_SM = 2
 _K3_CTAS_PER_SM = 2
 _K4_CTAS_PER_SM = 2
 _K5_CTAS_PER_SM = 2
@@ -208,7 +212,8 @@ def guided_wta_tile_rows(radius: int, size_d: int) -> int:
     """K3's output tile height, of 32, 16 and 8: occupancy first (up to
     ``_K3_CTAS_PER_SM``), then the tallest.  Neither the frame nor the
     batch enters: with 16 warps a block, a 32-row tile's smaller halo
-    beat 16-row tiles that fill every SM (PERF.md, Findings, PR 5)."""
+    beat 16-row tiles that fill every SM (PERF.md, Findings: K3, K4 and
+    K5 redesigned)."""
     lib = build()["lib"]
     return _tallest_fullest({th: lib.guided_wta_smem_bytes(radius, th, size_d)
                              for th in (32, 16, 8)}, _K3_CTAS_PER_SM,
@@ -237,7 +242,7 @@ def guided_wta_dual_tile_rows(radius: int, reach: int) -> int:
     first (up to ``_K4_CTAS_PER_SM``), then the tallest, whatever the
     frame.  With 512-thread blocks the 32-row tile beat the 16-row one
     at 288x384 too, though its 108 CTAs leave SMs idle (PERF.md,
-    Findings: K4 and K5 redesigned)."""
+    Findings: K3, K4 and K5 redesigned)."""
     lib = build()["lib"]
     return _tallest_fullest({th: lib.guided_wta_dual_smem_bytes(radius, th, reach)
                              for th in (32, 16, 8)}, _K4_CTAS_PER_SM,
@@ -248,20 +253,43 @@ def guided_wta_dual_tile_rows(radius: int, reach: int) -> int:
 # y-halo over more output rows).
 _BANDS = tuple(range(128, 0, -8))
 
-# K1's tile width (32 or 64 output columns per CTA) and the CTAs per SM
-# its band is sized for: 64 columns at two CTAs per SM (band 48 at 6 MP)
-# measured fastest (PERF.md, Findings, PR 3: K1's row walk).
-_K1_TILE_W = 64
-_K1_CTAS_PER_SM = 2
+# The steps of the row walks K1 and K5 (rows the walk adds at a time),
+# tried in this order, and their bands.  16-row steps on 512-thread blocks
+# ran 20% faster at 6 MP than K5's earlier 8-row steps on 256 threads;
+# above 96 rows the bands ran ~4% slower (PERF.md, Findings: K3, K4 and
+# K5 redesigned).  8-row steps take less shared memory, so larger radii
+# still fit.
+_STEPS = (16, 8)
+_WALK_BANDS = tuple(b for b in _BANDS if b <= 96)
+
+# K1's launch variants, for the measurements: tile width (32 or 64
+# output columns per CTA), the passes that sum runs (bit mask,
+# csrc/guided_wta_stream.cu) and the guide statistics in an L2 scratch.
+_K1_TILE_W = 32
+_K1_RUNS = 15
+_K1_GUIDE_L2 = False
+
+
+@functools.lru_cache(maxsize=None)
+def guided_wta_stream_step(radius: int, size_d: int, tile_w: int = _K1_TILE_W,
+                           l2: bool = _K1_GUIDE_L2) -> int | None:
+    """K1's step: the first of ``_STEPS`` whose lowest band fits one
+    block's shared memory; None if none does."""
+    lib = build()["lib"]
+    return next((step for step in _STEPS
+                 if lib.guided_wta_stream_smem_bytes(tile_w, radius, _WALK_BANDS[-1], size_d,
+                                                     step, l2) <= _SMEM_LIMIT), None)
 
 
 @functools.lru_cache(maxsize=None)
 def guided_wta_stream_band_rows(radius: int, size_d: int, h: int, w: int,
-                                n_sm: int, tile_w: int = _K1_TILE_W) -> int:
-    """K1's band height, of 128, 120, .., 8 (``_pick_rows``)."""
+                                n_sm: int, step: int, tile_w: int = _K1_TILE_W,
+                                l2: bool = _K1_GUIDE_L2) -> int:
+    """K1's band height, of 96, 88, .., 8 (``_pick_rows``), for steps of
+    ``step`` rows."""
     lib = build()["lib"]
-    band = _pick_rows({b: lib.guided_wta_stream_smem_bytes(tile_w, radius, b, size_d)
-                       for b in _BANDS}, _K1_CTAS_PER_SM, h, w, n_sm, tile_w)
+    band = _pick_rows({b: lib.guided_wta_stream_smem_bytes(tile_w, radius, b, size_d, step, l2)
+                       for b in _WALK_BANDS}, _K1_CTAS_PER_SM, h, w, n_sm, tile_w)
     if band is None:
         raise ValueError(f"radius {radius} with {size_d} disparities needs more "
                          "shared memory than one block has (row-walk kernel)")
@@ -269,40 +297,35 @@ def guided_wta_stream_band_rows(radius: int, size_d: int, h: int, w: int,
 
 
 def guided_wta_stream(gray1, gray2, best, dmap, dmin, size_d, radius,
-                      constants, eps, band=None, tile_w=_K1_TILE_W) -> None:
+                      constants, eps, band=None, step=None, tile_w=_K1_TILE_W,
+                      runs=_K1_RUNS, l2=_K1_GUIDE_L2) -> None:
     """Launch K1 (csrc/guided_wta_stream.cu) on the current stream;
-    arguments as guided_wta.  ``band`` (output rows per CTA) defaults to
-    ``guided_wta_stream_band_rows``; ``band`` and ``tile_w`` are set only
-    to measure other shapes of the kernel."""
+    arguments as guided_wta.  ``step`` (16 or 8) defaults to
+    ``guided_wta_stream_step`` and ``band`` (output rows per CTA) to
+    ``guided_wta_stream_band_rows``; they, ``tile_w``, ``runs`` and ``l2``
+    are set only to test or measure other shapes of the kernel."""
     lib = build()["lib"]
     n, h, w = gray1.shape
+    step = step or guided_wta_stream_step(radius, size_d, tile_w, l2) or _STEPS[-1]
     if band is None:
-        band = guided_wta_stream_band_rows(radius, size_d, h, w,
-                                           _n_sm(gray1.device), tile_w)
+        band = guided_wta_stream_band_rows(radius, size_d, h, w, _n_sm(gray1.device), step,
+                                           tile_w, l2)
+    scratch = torch.empty(lib.guided_wta_stream_scratch_bytes(tile_w, radius, band, n, h, w)
+                          if l2 else 0, dtype=torch.uint8, device=gray1.device)
     err = lib.guided_wta_stream_launch(
         gray1.data_ptr(), gray2.data_ptr(), best.data_ptr(), dmap.data_ptr(),
-        n, h, w, dmin, size_d, radius, tile_w, band, *constants, float(eps),
-        _stream(gray1))
+        scratch.data_ptr(), n, h, w, dmin, size_d, radius, tile_w, band, step, runs, int(l2),
+        *constants, float(eps), _stream(gray1))
     _check(err, "guided_wta_stream_launch")
-
-
-# K5's steps (rows the walk adds at a time), tried in this order, and its
-# bands.  16-row steps on 512-thread blocks ran 20% faster at 6 MP than
-# K5's earlier 8-row steps on 256 threads; above 96 rows the bands ran ~4%
-# slower (PERF.md, Findings: K4 and K5 redesigned).  8-row steps take less
-# shared memory, so radii up to 31 still fit at 16 disparities where
-# 16-row steps stop at 25.
-_K5_STEPS = (16, 8)
-_K5_BANDS = tuple(b for b in _BANDS if b <= 96)
 
 
 @functools.lru_cache(maxsize=None)
 def guided_wta_dual_stream_step(radius: int, reach: int) -> int | None:
-    """K5's step: the first of ``_K5_STEPS`` whose lowest band fits one
+    """K5's step: the first of ``_STEPS`` whose lowest band fits one
     block's shared memory; None if none does."""
     lib = build()["lib"]
-    return next((step for step in _K5_STEPS
-                 if lib.guided_wta_dual_stream_smem_bytes(radius, _K5_BANDS[-1], reach, step)
+    return next((step for step in _STEPS
+                 if lib.guided_wta_dual_stream_smem_bytes(radius, _WALK_BANDS[-1], reach, step)
                  <= _SMEM_LIMIT), None)
 
 
@@ -318,7 +341,7 @@ def guided_wta_dual_stream_band_rows(radius: int, reach: int, h: int, w: int,
     ``step`` rows."""
     lib = build()["lib"]
     band = _pick_rows({b: lib.guided_wta_dual_stream_smem_bytes(radius, b, reach, step)
-                       for b in _K5_BANDS}, _K5_CTAS_PER_SM, h, w, n_sm)
+                       for b in _WALK_BANDS}, _K5_CTAS_PER_SM, h, w, n_sm)
     if band is None:
         raise ValueError(f"radius {radius} with column reach {reach} needs "
                          "more shared memory than one block has (dual-view "
@@ -326,11 +349,11 @@ def guided_wta_dual_stream_band_rows(radius: int, reach: int, h: int, w: int,
     return band
 
 
-def _dual_launch(name, shape, gray_l, gray_r, outs, dmin, size_d, radius,
-                 constants, eps) -> None:
-    """Launch `name`_launch with a scratch of `name`_scratch_bytes (the
-    CTAs' guide statistics, which stay in L2).  ``shape``: the launch
-    shape's ints, tile or band rows first.  The scratch is freed on
+def _launch_with_scratch(name, shape, gray_l, gray_r, outs, dmin, size_d, radius,
+                         constants, eps) -> None:
+    """Launch `name`_launch (K1, K4, K5) with a scratch of
+    `name`_scratch_bytes (the CTAs' guide statistics, which stay in L2).
+    ``shape``: the launch shape's ints, tile or band rows first.  The scratch is freed on
     return while the kernel may still run: the caching allocator hands
     it out again only to work queued after it on the same stream."""
     lib = build()["lib"]
@@ -352,8 +375,8 @@ def guided_wta_dual(gray_l, gray_r, outs, dmin, size_d, radius, constants,
     ``guided_wta_dual_tile_rows``; it is set only to test or measure the
     other tile heights."""
     th = tile_rows or guided_wta_dual_tile_rows(radius, dual_reach(dmin, size_d))
-    _dual_launch("guided_wta_dual", (th,), gray_l, gray_r, outs, dmin, size_d,
-                 radius, constants, eps)
+    _launch_with_scratch("guided_wta_dual", (th,), gray_l, gray_r, outs, dmin, size_d,
+                         radius, constants, eps)
 
 
 def guided_wta_dual_stream(gray_l, gray_r, outs, dmin, size_d, radius,
@@ -365,25 +388,26 @@ def guided_wta_dual_stream(gray_l, gray_r, outs, dmin, size_d, radius,
     measure other shapes of the kernel."""
     _, h, w = gray_l.shape
     reach = dual_reach(dmin, size_d)
-    step = step or guided_wta_dual_stream_step(radius, reach) or _K5_STEPS[-1]
+    step = step or guided_wta_dual_stream_step(radius, reach) or _STEPS[-1]
     if band is None:
         band = guided_wta_dual_stream_band_rows(radius, reach, h, w,
                                                 _n_sm(gray_l.device), step)
-    _dual_launch("guided_wta_dual_stream", (band, step), gray_l, gray_r,
-                 outs, dmin, size_d, radius, constants, eps)
+    _launch_with_scratch("guided_wta_dual_stream", (band, step), gray_l, gray_r,
+                         outs, dmin, size_d, radius, constants, eps)
 
 
 def lr_fill(dl, dr, occ, filled, dmin, size_d, d_lr, d_occlusion,
-            v_min) -> None:
+            v_min, rows_per_cta=1) -> None:
     """Launch K2 (csrc/lr_fill.cu) on the current stream.  dl/dr/occ/filled:
     float32 (..., W), contiguous; every row is independent, so a (N, H, W)
-    batch is N*H rows of one launch, bit-identical to per-frame launches."""
+    batch is N*H rows of one launch, bit-identical to per-frame launches.
+    ``rows_per_cta`` (1, 2, 4 or 8) is set only to measure other shapes."""
     lib = build()["lib"]
     w = dl.shape[-1]
     h = dl.numel() // w
-    if lib.lr_fill_smem_bytes(w) > _SMEM_LIMIT:
+    if rows_per_cta * lib.lr_fill_smem_bytes(w) > _SMEM_LIMIT:
         raise ValueError(f"row width {w} exceeds the post kernel's shared memory")
     err = lib.lr_fill_launch(
         dl.data_ptr(), dr.data_ptr(), occ.data_ptr(), filled.data_ptr(),
-        h, w, dmin, size_d, d_lr, d_occlusion, v_min, _stream(dl))
+        h, w, dmin, size_d, d_lr, d_occlusion, v_min, rows_per_cta, _stream(dl))
     _check(err, "lr_fill_launch")

@@ -88,10 +88,11 @@ def use_stream(cfg: StereoConfig, h: int, w: int, dual: bool = True) -> bool:
     px when the stream fits (pipeline.py:223-287): on the H100 the
     single-view row walk K1 measured slower than the tiles K3 at every
     size (K1/K3 1.84x at 288x384, 1.18x at 6 MP, 1.89x at 64 and 1.34x
-    at 128 disparities; PERF.md, Findings: K3, the single-view row
-    walk), so the port's default single view keeps its tiled kernel
-    until a benchmark gives an H100 routing table.  The rule needs no
-    kernel library, so it is decided on the CPU too."""
+    at 128 disparities; PERF.md, Findings: the port and what it taught;
+    the redesigned K1 still 1.2x at 6 MP), so the port's default single
+    view keeps its tiled kernel until a benchmark gives an H100 routing
+    table.  The rule needs no kernel library, so it is decided on the CPU
+    too."""
     if not dual:
         return cfg.stream is True
     if cfg.stream is not None:

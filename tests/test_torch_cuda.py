@@ -85,6 +85,52 @@ def test_k2_bit_identical(dev, d_min, h, w):
     assert torch.equal(occ, occ_p) and torch.equal(filled, filled_p)
 
 
+def _label_maps(cfg, shape, seed, dev):
+    """Random left and right label maps of ``cfg``'s range, with a few
+    values outside the label set and rows with no LR-consistent pixel."""
+    rng = np.random.default_rng(seed)
+    dl = rng.integers(cfg.d_min, cfg.d_max + 1, shape).astype(np.float32)
+    dr = rng.integers(-cfg.d_max, -cfg.d_min + 1, shape).astype(np.float32)
+    dl.reshape(-1)[::7] += 0.5
+    dl.reshape(-1)[::11] = -200.0
+    if shape[-2] > 3:
+        dr[..., 1:3, :] = 500.0
+    return torch.from_numpy(dl).to(dev), torch.from_numpy(dr).to(dev)
+
+
+@pytest.mark.parametrize("d_min,d_max", [(-15, 0), (0, 15)])
+@pytest.mark.parametrize("shape", [(5, 1), (5, 3), (5, 5), (6, 33), (4, 257), (7, 383),
+                                   (3, 3008), (3, 4, 383), (3, 20000)])
+def test_k2_row_widths(dev, d_min, d_max, shape):
+    """Widths that stress K2's row staging (16-byte vectors with a scalar
+    head and tail; rows of a width not a multiple of 4 start at every
+    alignment), a (B, H, W) batch, and rows too wide for two a CTA (one
+    row of 256 threads), bit for bit, for labels of either sign."""
+    cfg = StereoConfig(d_min=d_min, d_max=d_max)
+    dl, dr = _label_maps(cfg, shape, sum(shape), dev)
+    occ, filled = lr_fill_fused(dl, dr, cfg)
+    occ_p, filled_p = lr_fill_reference(dl, dr, cfg)
+    assert torch.equal(occ, occ_p) and torch.equal(filled, filled_p)
+
+
+@pytest.mark.parametrize("w", [31, 384])
+def test_k2_unaligned_maps(dev, w):
+    """Maps that start 4 bytes past a 16-byte boundary take K2's
+    one-float path, bit for bit."""
+    cfg = DEFAULT_CONFIG
+    dl, dr = _label_maps(cfg, (9, w), w, dev)
+    views = []
+    for m in (dl, dr):
+        buf = torch.empty(m.numel() + 1, dtype=torch.float32, device=dev)
+        view = buf[1:].view(m.shape)
+        view.copy_(m)
+        views.append(view)
+    assert views[0].data_ptr() % 16 == 4 and views[0].is_contiguous()
+    occ, filled = lr_fill_fused(*views, cfg)
+    occ_p, filled_p = lr_fill_reference(dl, dr, cfg)
+    assert torch.equal(occ, occ_p) and torch.equal(filled, filled_p)
+
+
 @pytest.mark.parametrize("stream", [False, True], ids=["K3", "K1"])
 def test_single_view_batch_equals_per_frame(dev, stream):
     cfg = StereoConfig(stream=stream)
@@ -368,3 +414,77 @@ def test_dual_batch_equals_per_frame_at_each_block(dev, shape):
     for i, (a, b) in enumerate(pairs):
         for j, t in enumerate(_dual_at(a, b, DEFAULT_CONFIG, **shape)):
             assert torch.equal(batch[j][i], t), (shape, i, j)
+
+
+def _k1_at(g1, g2, dmin, cfg, **shape):
+    """K1 at one launch shape (``band``, ``step``): uint8 (H, W) or
+    (B, H, W) x2 -> (best, dmap)."""
+    from stereo_matching_cuda_tpu_torch.ops import _kernels
+    from stereo_matching_cuda_tpu_torch.ops.cost import cost_constants
+
+    a, b = (g.reshape(-1, *g.shape[-2:]) for g in (g1, g2))
+    best = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    dmap = torch.empty_like(best)
+    _kernels.guided_wta_stream(a, b, best, dmap, dmin, cfg.size_d, cfg.radius,
+                               cost_constants(cfg), cfg.eps, **shape)
+    return best.reshape(g1.shape), dmap.reshape(g1.shape)
+
+
+def _assert_k1_bound(g1, g2, dmin, cfg, shapes):
+    best_p, dmap_p = guided_wta_fused_reference(g1, g2, dmin, cfg)
+    for shape in shapes:
+        best, dmap = _k1_at(g1, g2, dmin, cfg, **shape)
+        mism = int((dmap != dmap_p).sum())
+        assert mism <= max(4, 2e-3 * dmap.numel()), (shape, mism)
+        torch.testing.assert_close(best, best_p, atol=2e-3, rtol=1e-4, msg=f"{shape}")
+
+
+@pytest.mark.parametrize("h,band", [(37, 8), (53, 24), (61, 16), (101, 40), (29, 96),
+                                    (1, 8)])
+def test_k1_band_edges(dev, h, band):
+    """Heights that are a multiple of neither the step nor the band, at
+    every step."""
+    g1, g2 = _pair(h, 70, h + band + 1, dev)
+    _assert_k1_bound(g1, g2, DEFAULT_CONFIG.d_min, DEFAULT_CONFIG,
+                     [{"band": band, "step": step} for step in K5_STEPS])
+
+
+def test_k1_step_fallback_at_the_largest_radius(dev):
+    """16-row steps up to the largest radius whose lowest band fits one
+    block with them; above it 8-row steps, up to the largest radius that
+    fits at all; both within the bound there."""
+    from stereo_matching_cuda_tpu_torch.ops import _kernels
+
+    d = DEFAULT_CONFIG.size_d
+    r16 = max(r for r in range(1, 60) if _kernels.guided_wta_stream_step(r, d) == 16)
+    r8 = max(r for r in range(1, 60) if _kernels.guided_wta_stream_step(r, d) is not None)
+    print(f"K1: 16-row steps up to R={r16}, 8-row steps up to R={r8}")
+    assert r16 >= 23 and r8 > r16
+    assert _kernels.guided_wta_stream_step(r16 + 1, d) == 8
+    assert _kernels.guided_wta_stream_step(r8 + 1, d) is None
+    for radius, step in ((r16, 16), (r8, 8)):
+        cfg = dataclasses.replace(DEFAULT_CONFIG, radius=radius, stream=True)
+        g1, g2 = _pair(50, 90, radius, dev)
+        _assert_k1_bound(g1, g2, cfg.d_min, cfg, [{}])
+        assert _kernels.guided_wta_stream_step(radius, d) == step
+
+
+@pytest.mark.parametrize("dmin", [0, -5])
+def test_k1_one_disparity(dev, dmin):
+    cfg = StereoConfig(d_min=dmin, d_max=dmin, stream=True)
+    g1, g2 = _pair(40, 97, 12, dev)
+    _assert_k1_bound(g1, g2, dmin, cfg, [{"step": step} for step in K5_STEPS])
+    best, dmap = guided_wta_fused(g1, g2, dmin, cfg)
+    assert bool((dmap == dmin).all())
+
+
+@pytest.mark.parametrize("step", K5_STEPS)
+def test_k1_batch_equals_per_frame_at_each_step(dev, step):
+    """A B=3 batch equals per-frame launches bit for bit at each step."""
+    pairs = [_pair(70, 100, s, dev) for s in (10, 11, 12)]
+    shape = {"band": 24, "step": step}
+    batch = _k1_at(torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs]),
+                   DEFAULT_CONFIG.d_min, DEFAULT_CONFIG, **shape)
+    for i, (a, b) in enumerate(pairs):
+        for j, t in enumerate(_k1_at(a, b, DEFAULT_CONFIG.d_min, DEFAULT_CONFIG, **shape)):
+            assert torch.equal(batch[j][i], t), (step, i, j)

@@ -1,7 +1,7 @@
 """The kernels' launch-shape choice on the CPU, with no card and no CUDA
 toolkit: ``_kernels._pick_rows`` (K1, K5), K3's and K4's tile heights
-(``guided_wta_tile_rows``, ``guided_wta_dual_tile_rows``) and K5's step
-and band on synthetic {rows: shared-memory bytes} tables.
+(``guided_wta_tile_rows``, ``guided_wta_dual_tile_rows``) and the steps
+and bands of K1 and K5 on synthetic {rows: shared-memory bytes} tables.
 tests/test_torch_cuda.py checks the picks with the real shared-memory
 functions on a card."""
 
@@ -77,6 +77,7 @@ def test_batch_size_never_enters():
     assert list(inspect.signature(_kernels.guided_wta_dual_tile_rows).parameters) == [
         "radius", "reach"]
     assert "n" not in inspect.signature(_kernels.guided_wta_dual_stream_band_rows).parameters
+    assert "n" not in inspect.signature(_kernels.guided_wta_stream_band_rows).parameters
 
 
 @pytest.mark.parametrize("radius,size_d,rows", [
@@ -165,3 +166,53 @@ def test_k5_band_rows(dual_tables, step, hw, band):
 def test_k5_band_rows_raises_when_nothing_fits(dual_tables):
     with pytest.raises(ValueError, match="shared memory"):
         _kernels.guided_wta_dual_stream_band_rows(32, 15, *BIG, N_SM, 8)
+
+
+# K1's shared memory at 16 disparities is about base + 219 bytes a band
+# row (the band's input windows; its guide statistics live in L2);
+# {(radius, step): base}, rounded: 16-row steps fit one block up to R=32,
+# 8-row steps up to R=37.
+K1_BASE = {(9, 16): 80_000, (9, 8): 54_600, (32, 16): 225_000, (32, 8): 170_000,
+           (33, 16): 236_000, (33, 8): 180_000, (37, 16): 290_000, (37, 8): 229_000,
+           (38, 16): 300_000, (38, 8): 240_000}
+
+
+@pytest.fixture
+def k1_table(monkeypatch):
+    """``build`` replaced by a library whose guided_wta_stream_smem_bytes
+    (radius, band, slice count, step) reads K1_BASE; the pickers' caches
+    cleared."""
+    class Lib:
+        @staticmethod
+        def guided_wta_stream_smem_bytes(tile_w, radius, band, size_d, step, l2):
+            return K1_BASE[radius, step] + 219 * band
+
+    pickers = (_kernels.guided_wta_stream_step, _kernels.guided_wta_stream_band_rows)
+    monkeypatch.setattr(_kernels, "build", lambda *a: {"lib": Lib})
+    for f in pickers:
+        f.cache_clear()
+    yield
+    for f in pickers:
+        f.cache_clear()
+
+
+@pytest.mark.parametrize("radius,step", [(9, 16), (32, 16), (33, 8), (37, 8), (38, None)])
+def test_k1_step(k1_table, radius, step):
+    """16-row steps where the lowest band fits one block, else 8, else
+    none (the wrapper then raises from the band picker)."""
+    assert _kernels.guided_wta_stream_step(radius, 16, 64, True) == step
+
+
+@pytest.mark.parametrize("step", [16, 8])
+@pytest.mark.parametrize("hw,band", [(BIG, 96), (SMALL, 8), ((4096, 4096), 96),
+                                     ((64, 64), 8)])
+def test_k1_band_rows(k1_table, step, hw, band):
+    """At R=9 every band fits two CTAs per SM; the bands stop at 96, and
+    the tallest of those that still gives the frame a CTA per SM wins
+    (288x384: 6 x 36 = 216 CTAs of 64 columns at 8 rows, 108 at 16)."""
+    assert _kernels.guided_wta_stream_band_rows(9, 16, *hw, N_SM, step, 64, True) == band
+
+
+def test_k1_band_rows_raises_when_nothing_fits(k1_table):
+    with pytest.raises(ValueError, match="shared memory"):
+        _kernels.guided_wta_stream_band_rows(38, 16, *BIG, N_SM, 8, 64, True)
