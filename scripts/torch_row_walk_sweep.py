@@ -9,14 +9,15 @@ It prints the card's name and power limit, the registers and spills of
 K1 and K2 as ptxas reports them, and for 288x384 and 1992x3008 frames at
 16 and 8 disparities (random frames): ms per launch through the wrappers
 (K1 and K3 through ``guided_wta_fused``, one view; K2 through
-``lr_fill_fused`` on random label maps, at 16 disparities).  Then K1 at
-each launch variant (tile width, step, the passes that sum runs, guide
-statistics in shared memory or in L2) and band whose shared memory fits
-two CTAs per SM, each variant first checked against the plain version on
-the frame (the fused bound), with the shapes the wrapper picks marked;
-at the picked bands, the passes of each tile and step without L2 in
-turns, and TURNS in turns; and K2 at 1, 2, 4 and 8 rows per CTA, each
-first checked bit for bit, in turns.  CUDA events after warm-up, in one
+``lr_fill_fused`` on random label maps, at 16 disparities, checked bit
+for bit against its plain version), by CUDA events and as the kernel's
+own device time from torch.profiler (the events also count the host's
+launch gaps, which dominate K2 at 288x384).  Then K1 at each step (16, 8 rows)
+and band whose shared memory fits two CTAs per SM, each step first
+checked against the plain version on the frame (the fused bound), with
+the shape the wrapper picks marked.  K1's tile is 64 columns; the 32-
+and 64-column tiles were compared with a build that had both (PERF.md,
+Findings: K2 and K1 redesigned).  CUDA events after warm-up, in one
 process.
 
 ``--root DIR`` imports the package from another checkout (for example
@@ -43,15 +44,6 @@ from torch_k3_tiles import ptxas_lines
 SHAPES = ((288, 384, 16, 50), (1992, 3008, 16, 10), (288, 384, 8, 50),
           (1992, 3008, 8, 10))
 KERNELS = {"K1": "guided_wta_stream_kernel", "K2": "lr_fill_kernel", "K3": "guided_wta_kernel"}
-RUNS = (0, 13, 15)
-# K1 launch variants: tile width, step, the passes that sum runs (bit
-# mask) and guide statistics in an L2 scratch.
-VARIANTS = ([dict(tile_w=tw, step=st, runs=r, l2=False)
-             for tw in (32, 64) for st in (16, 8) for r in RUNS]
-            + [dict(tile_w=tw, step=st, runs=r, l2=True) for tw, st, r in (
-                (32, 16, 15), (64, 16, 15), (64, 16, 13), (64, 8, 15), (64, 8, 13))])
-# The variants timed in turns at the band the wrapper picks for them.
-TURNS = [VARIANTS[2], VARIANTS[-4], VARIANTS[-3]]
 
 
 def device_ms(call, iters, kernel):
@@ -130,56 +122,25 @@ def main() -> int:
         def k1(**shape):
             _kernels.guided_wta_stream(g1, g2, best, dmap, *launch, **shape)
 
-        picks = {}
-        for v in VARIANTS:
-            key = tuple(v.values())
-            pick = picks[key] = _kernels.guided_wta_stream_band_rows(
-                cfg.radius, d, h, w, n_sm, v["step"], v["tile_w"], v["l2"])
-            k1(band=pick, **v)
+        for step in _kernels._STEPS:
+            pick = _kernels.guided_wta_stream_band_rows(cfg.radius, d, h, w, n_sm, step)
+            k1(band=pick, step=step)
             mism = int((dmap != dmap_p).sum())
             err = float((best - best_p).abs().max())
-            print(f"{tag}: K1 check {v} band {pick}: {mism} flips (bound "
+            print(f"{tag}: K1 check step {step} band {pick}: {mism} flips (bound "
                   f"{max(4, int(2e-3 * h * w))}), max |best-plain| {err:.3g}")
             assert mism <= max(4, 2e-3 * h * w)
             torch.testing.assert_close(best, best_p, atol=2e-3, rtol=1e-4)
             for band in _kernels._WALK_BANDS:
-                smem = lib.guided_wta_stream_smem_bytes(v["tile_w"], cfg.radius, band, d,
-                                                        v["step"], v["l2"])
+                smem = lib.guided_wta_stream_smem_bytes(cfg.radius, band, d, step)
                 per_sm = _kernels.smem_ctas_per_sm(smem)
                 if smem > _kernels._SMEM_LIMIT or per_sm < 2:
                     continue
-                ms = cuda_ms(lambda: k1(band=band, **v), iters)
-                print(f"{tag}: K1 {v} band {band}, {-(-w // v['tile_w']) * -(-h // band)} "
-                      f"CTAs, smem {smem} B ({per_sm} CTAs/SM by smem): {ms:.4f} ms"
+                ms = cuda_ms(lambda: k1(band=band, step=step), iters)
+                ctas = -(-w // _kernels._K1_TILE_W) * -(-h // band)
+                print(f"{tag}: K1 step {step} band {band}, {ctas} CTAs, smem {smem} B "
+                      f"({per_sm} CTAs/SM by smem): {ms:.4f} ms"
                       + ("  (picked)" if band == pick else ""))
-        for tw in (32, 64):
-            for st in (16, 8):
-                order = [dict(tile_w=tw, step=st, runs=r, l2=False) for r in RUNS + RUNS[::-1]]
-                turns = [cuda_ms(lambda: k1(band=picks[tuple(v.values())], **v), iters)
-                         for v in order]
-                print(f"{tag}: K1 tile {tw} step {st}, runs {' '.join(str(v['runs']) for v in order)} "
-                      "in turns: " + " ".join(f"{ms:.4f}" for ms in turns) + " ms")
-        order = TURNS + TURNS[::-1]
-        turns = [cuda_ms(lambda: k1(band=picks[tuple(v.values())], **v), iters) for v in order]
-        print(f"{tag}: K1 in turns at the picked bands: "
-              + "; ".join(f"{v} {ms:.4f}" for v, ms in zip(order, turns)) + " ms")
-        if d == 16:
-            occ_p, filled_p = lr_fill_reference(dl, dr, cfg)
-            occ, filled = torch.empty_like(dl), torch.empty_like(dl)
-            rpcs = [r for r in (1, 2, 4, 8)
-                    if r * lib.lr_fill_smem_bytes(w) <= _kernels._SMEM_LIMIT]
-
-            def k2(rpc):
-                _kernels.lr_fill(dl, dr, occ, filled, cfg.d_min, d, cfg.d_lr,
-                                 cfg.d_occlusion, cfg.v_min, rows_per_cta=rpc)
-
-            for rpc in rpcs:
-                k2(rpc)
-                assert torch.equal(occ, occ_p) and torch.equal(filled, filled_p), rpc
-            order = rpcs + rpcs[::-1]
-            turns = [cuda_ms(lambda: k2(rpc), 20 * iters) for rpc in order]
-            print(f"{tag}: K2 rows per CTA in turns (each bit-identical): "
-                  + "; ".join(f"{rpc} {ms:.4f}" for rpc, ms in zip(order, turns)) + " ms")
         del g1, g2, best, dmap
     return 0
 

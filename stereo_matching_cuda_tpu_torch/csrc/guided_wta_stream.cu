@@ -12,28 +12,43 @@
 // Design.  The TPU kernel walks each column strip top to bottom and
 // carries, per slice, 2R rows of window sums between sequential grid
 // steps.  On the H100 the walk is a loop inside the block, as in K5
-// (guided_wta_dual_stream.cu): one CTA owns TW output columns over a band
-// of `band` rows and walks down it kStep rows at a time, keeping only the
-// last 2R + kStep rows of each x-sum in shared-memory rings, so the 2R
-// y-halo is paid once per band, not once per tile.  Output rows lag the
-// input by 2R (a/b lag R behind the cost, q lags R behind a/b).  The
-// slices are the outer loop and the rows the inner one (one slice's rings
-// at a time).  One view needs half of K5's step buffers, so the band's
-// guide statistics (mean_I, c) stay in shared memory; their x-sums are
-// built in chunks of rows inside the step buffers' space before the walk.
-// The running (best, dmap) live in the output arrays, read back once per
-// slice from L2.  Each step of the walk: (1) cost and I*cost of kStep new
-// rows; (2) their x-sums into ring X1; (3) y-sums over X1 -> a, b of
-// kStep rows; (4) their x-sums into ring X2; (5) y-sums over X2 ->
-// box(a), box(b) of kStep output rows; (6) q and the WTA update.  Every
-// window is summed directly (kRB windows at once).
+// (guided_wta_dual_stream.cu): one CTA owns kTW = 64 output columns over
+// a band of `band` rows and walks down it STEP rows at a time, keeping
+// only the last 2R + STEP rows of each x-sum in shared-memory rings, so
+// the 2R y-halo is paid once per band, not once per tile.  Output rows
+// lag the input by 2R (a/b lag R behind the cost, q lags R behind a/b).
+// The slices are the outer loop and the rows the inner one (one slice's
+// rings at a time).  As in K5, what persists across slices stays out of
+// shared memory: the band's guide statistics (mean_I, c; their x-sums are
+// built in chunks of rows inside the step buffers' space before the walk)
+// in a per-CTA device scratch, and the running (best, dmap) in the output
+// arrays; both are read back once per slice, from L2.  Each step of the
+// walk: (1) cost and I*cost of STEP new rows; (2) their x-sums into ring
+// X1; (3) y-sums over X1 -> a, b of STEP rows; (4) their x-sums into ring
+// X2; (5) y-sums over X2 -> box(a), box(b) of STEP output rows; (6) q and
+// the WTA update.  Passes 2, 4 and 5 sum runs of kRun = 8 windows from
+// one direct seed, one plane per task (run_sums1); pass 3 needs both
+// planes of a window in one thread and sums kRB = 4 windows directly,
+// which gives it twice the tasks of runs.
 //
-// What bounds it on the H100.  Shared-memory traffic and instruction
-// throughput, as K3, with the y halo ratio of the cost cut from
-// (TH+4R)/TH to (band+4R)/band and that of a/b from (TH+2R)/TH to
-// (band+2R)/band, for five barriers per step of kStep rows.  A 64-column
-// tile (TW) cuts the x halo ratio of the cost from (32+4R)/32 to
-// (64+4R)/64.
+// Block, step, tile and band.  32 x 16 threads at __launch_bounds__(512,
+// 2): two CTAs, 32 warps, per SM (at most 64 registers a thread).  The
+// walk adds STEP = 16 rows a step, or 8 for radii whose 16-row step
+// buffers do not fit one block; the wrapper (ops/_kernels.py) picks the
+// step and sizes the band for two CTAs per SM, at most 96 rows.  With the
+// guide statistics in L2 the 64-column tile takes a 96-row band at two
+// CTAs per SM (in shared memory it stopped at 24 rows): at 6 MP it ran
+// 22% faster than 32 columns at band 96, the fastest shape with the
+// statistics in shared memory; 8-row steps on 512 threads ran 37-59%
+// slower, and pass 3 in runs 4% slower than direct (PERF.md, Findings:
+// K2 and K1 redesigned).
+//
+// What bounds it on the H100.  Shared-memory latency and issue, as K3,
+// with the y halo ratio of the cost cut from (TH+4R)/TH to (band+4R)/band
+// and that of a/b from (TH+2R)/TH to (band+2R)/band, and the x halo ratio
+// of the cost from (32+4R)/32 to (64+4R)/64, for five barriers per step.
+// Its shared memory is the step buffers and the band's input windows: at
+// R=9, D=16, 16-row steps and band 96, 101,036 bytes, two CTAs per SM.
 
 #include "guided_common.cuh"
 
@@ -41,14 +56,15 @@ namespace {
 
 using namespace guided;
 
+constexpr int kTW = 64;              // output columns per CTA
 constexpr int kBY = 16;              // the block is kTileW x kBY threads
 constexpr int kNT = kTileW * kBY;    // its threads
 
 struct Geom {
   int P;        // 2R
-  int EC, MC;   // cost columns (TW + 4R) and a/b columns (TW + 2R)
+  int EC, MC;   // cost columns (kTW + 4R) and a/b columns (kTW + 2R)
   int PE, PM;   // their pitches (odd)
-  int PQ;       // pitch of the TW-column planes (odd)
+  int PQ;       // pitch of the kTW-column planes (odd)
   int I1C, I2C; // guide window width (EC + 2), match window width (EC + D + 1)
   int NR;       // cost rows of the band: band + 4R
   int MB;       // a/b rows of the band: band + 2R
@@ -58,14 +74,14 @@ struct Geom {
 };
 
 // step: rows one step of the walk adds.
-__host__ __device__ inline Geom geometry(int TW, int R, int band, int D, int step) {
+__host__ __device__ inline Geom geometry(int R, int band, int D, int step) {
   Geom g;
   g.P = 2 * R;
-  g.EC = TW + 2 * g.P;
-  g.MC = TW + g.P;
+  g.EC = kTW + 2 * g.P;
+  g.MC = kTW + g.P;
   g.PE = g.EC | 1;
   g.PM = g.MC | 1;
-  g.PQ = TW + 1;
+  g.PQ = kTW + 1;
   g.I1C = g.EC + 2;
   g.I2C = g.EC + D + 1;
   g.NR = band + 2 * g.P;
@@ -77,31 +93,26 @@ __host__ __device__ inline Geom geometry(int TW, int R, int band, int D, int ste
   return g;
 }
 
-// l2: the band's guide statistics in a per-CTA device scratch (read from
-// L2), not in shared memory.
-__host__ inline size_t smem_bytes(int TW, int R, int band, int D, int step, bool l2) {
-  const Geom g = geometry(TW, R, band, D, step);
-  return ((size_t)g.walk + (l2 ? 0 : 2 * (size_t)g.MB * g.MC)) * sizeof(float)
-         + (size_t)g.NR * (g.I1C + g.I2C);
+__host__ inline size_t smem_bytes(int R, int band, int D, int step) {
+  const Geom g = geometry(R, band, D, step);
+  return (size_t)g.walk * sizeof(float) + (size_t)g.NR * (g.I1C + g.I2C);
 }
 
-// Floats of one CTA's guide statistics (mean_I, c over the band's M rows).
-__host__ __device__ inline size_t guide_floats(int TW, int R, int band) {
-  const Geom g = geometry(TW, R, band, 0, 1);
+// Floats of one CTA's guide statistics in the scratch: mean_I and c over
+// the band's M rows.
+__host__ __device__ inline size_t guide_floats(int R, int band) {
+  const Geom g = geometry(R, band, 0, 1);
   return 2 * (size_t)g.MB * g.MC;
 }
 
-// RUNS: the box passes 2-5 that sum runs of kRun windows (bit 0: pass 2,
-// bit 1: pass 3, bit 2: pass 4, bit 3: pass 5); the others sum each
-// window directly, kRB at a time.
-template <int TW, int STEP, int RUNS, bool GL2>
+template <int STEP>
 __global__ void __launch_bounds__(kNT, 2)
 guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
                          const uint8_t* __restrict__ gray2,
                          float* __restrict__ best_out,
                          float* __restrict__ dmap_out, float* scratch, Params p, int band) {
   extern __shared__ float smem[];
-  const Geom g = geometry(TW, p.R, band, p.D, STEP);
+  const Geom g = geometry(p.R, band, p.D, STEP);
   const int P = g.P, R = p.R, H = p.H, W = p.W, RING = g.RING, PQ = g.PQ;
   const int k = 2 * R + 1;
   float* cost = smem;                        // cost, I*cost: STEP x PE each
@@ -110,13 +121,13 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
   float* x2 = ab + 2 * STEP * g.PM;          // their x-sums: 2 rings of RING x PQ
   float* qs = x2 + 2 * RING * PQ;            // box(a), box(b): STEP x PQ each
   float* gsum = smem;                        // guide x-sums (2 x (CH + 2R) x PM), before the walk
-  // Guide statistics, MB x MC each: in shared memory, or (GL2) in this
-  // CTA's part of the scratch, written once and read from L2 by every slice.
-  const size_t cta = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  float* mean_i = GL2 ? scratch + cta * guide_floats(TW, p.R, band) : smem + g.walk;
-  float* c_i = mean_i + g.MB * g.MC;
-  uint8_t* i1s = reinterpret_cast<uint8_t*>(smem + g.walk + (GL2 ? 0 : 2 * g.MB * g.MC));  // NR x I1C
+  uint8_t* i1s = reinterpret_cast<uint8_t*>(smem + g.walk);       // NR x I1C
   uint8_t* i2s = i1s + g.NR * g.I1C;                                // NR x I2C
+  // This CTA's guide statistics (mean_I, c: MB x MC each), in device
+  // memory: written once, then read from L2 by every slice.
+  const size_t cta = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  float* mean_i = scratch + cta * guide_floats(R, band);
+  float* c_i = mean_i + g.MB * g.MC;
 
   const size_t frame = (size_t)blockIdx.z * H * W;
   gray1 += frame;
@@ -124,7 +135,7 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
   best_out += frame;
   dmap_out += frame;
   const int tid = threadIdx.y * kTileW + threadIdx.x;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * band;
+  const int x0 = blockIdx.x * kTW, y0 = blockIdx.y * band;
   const int ye = y0 - P, xe = x0 - P;        // global origin of the band's E rows / columns
   const int ym = y0 - R, xm = x0 - R;        // global origin of its M rows / columns
 
@@ -215,9 +226,9 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
       }
       __syncthreads();
 
-      // 2. x-sums of both planes into ring X1 (slot = E row % RING).
-      if constexpr ((RUNS & 1) != 0) {
-        // In runs, one plane per task.
+      // 2. x-sums of both planes into ring X1 (slot = E row % RING), in
+      // runs, one plane per task.
+      {
         const int nrun = (g.MC + kRun - 1) / kRun;
         for (int e = tid; e < ns * nrun * 2; e += kNT) {
           const int lr = e % ns, rest = e / ns;
@@ -227,28 +238,12 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
           run_sums1([&](int j) { return src[j]; }, k, min(kRun, g.MC - c0),
                     [&](int i, float sx) { dst[i] = sx; });
         }
-      } else {
-        const int nblk = (g.MC + kRB - 1) / kRB;
-        for (int e = tid; e < ns * nblk; e += kNT) {
-          const int lr = e % ns, c0 = (e / ns) * kRB;
-          const int nv = min(kRB, g.MC - c0);
-          float s1[kRB], s2[kRB];
-          window_sums<kRB>(cost + lr * g.PE + c0, 1, k, nv, s1);
-          window_sums<kRB>(cost + (STEP + lr) * g.PE + c0, 1, k, nv, s2);
-          float* da = x1 + ((i0 + lr) % RING) * g.PM + c0;
-          float* db = da + RING * g.PM;
-#pragma unroll
-          for (int i = 0; i < kRB; ++i)
-            if (i < nv) {
-              da[i] = s1[i];
-              db[i] = s2[i];
-            }
-        }
       }
       __syncthreads();
 
       // 3. a/b rows whose windows end in this step's rows: M row m needs
-      // E rows m .. m + 2R.
+      // E rows m .. m + 2R.  Both planes of a window in one thread, kRB
+      // windows down a column at a time.
       const int m_lo = max(0, i0 - P), m_hi = min(g.MB, i0 + ns - P);
       const int nm = m_hi - m_lo;
       if (nm > 0) {
@@ -263,111 +258,60 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
           ab[(m - m_lo) * g.PM + c] = a;
           ab[(STEP + m - m_lo) * g.PM + c] = b;
         };
-        if constexpr ((RUNS & 2) != 0) {
-          // One run per kRun rows down a column.
-          const int nrun = (nm + kRun - 1) / kRun;
-          for (int e = tid; e < g.MC * nrun; e += kNT) {
-            const int c = e % g.MC, m0 = m_lo + (e / g.MC) * kRun;
-            const int slot0 = m0 % RING;
-            auto ring = [&](const float* plane, int j) {
-              int sl = slot0 + j;
-              if (sl >= RING) sl -= RING;
-              return plane[sl * g.PM + c];
-            };
-            run_sums<kRun>([&](int j) { return ring(ra, j); },
-                           [&](int j) { return ring(rb, j); }, k, min(kRun, m_hi - m0),
-                           [&](int i, float s1, float s2) { ab_of(m0 + i, c, s1, s2); });
-          }
-        } else {
-          const int nblk = (nm + kRB - 1) / kRB;
-          for (int e = tid; e < g.MC * nblk; e += kNT) {
-            const int c = e % g.MC, m0 = m_lo + (e / g.MC) * kRB;
-            const int nv = min(kRB, m_hi - m0);
-            const int slot0 = m0 % RING;
-            auto ring = [&](const float* plane, int j) {
-              int sl = slot0 + j;
-              if (sl >= RING) sl -= RING;
-              return plane[sl * g.PM + c];
-            };
-            float s1[kRB], s2[kRB];
-            window_sums<kRB>([&](int j) { return ring(ra, j); }, k, nv, s1);
-            window_sums<kRB>([&](int j) { return ring(rb, j); }, k, nv, s2);
+        const int nblk = (nm + kRB - 1) / kRB;
+        for (int e = tid; e < g.MC * nblk; e += kNT) {
+          const int c = e % g.MC, m0 = m_lo + (e / g.MC) * kRB;
+          const int nv = min(kRB, m_hi - m0);
+          const int slot0 = m0 % RING;
+          auto ring = [&](const float* plane, int j) {
+            int sl = slot0 + j;
+            if (sl >= RING) sl -= RING;
+            return plane[sl * g.PM + c];
+          };
+          float s1[kRB], s2[kRB];
+          window_sums<kRB>([&](int j) { return ring(ra, j); }, k, nv, s1);
+          window_sums<kRB>([&](int j) { return ring(rb, j); }, k, nv, s2);
 #pragma unroll
-            for (int i = 0; i < kRB; ++i)
-              if (i < nv) ab_of(m0 + i, c, s1[i], s2[i]);
-          }
+          for (int i = 0; i < kRB; ++i)
+            if (i < nv) ab_of(m0 + i, c, s1[i], s2[i]);
         }
       }
       __syncthreads();
 
       // 4. x-sums of a, b over the tile columns into ring X2 (slot = M
-      // row % RING).
+      // row % RING), in runs, one plane per task.
       if (nm > 0) {
-        if constexpr ((RUNS & 4) != 0) {
-          // In runs, one plane per task.
-          constexpr int nrun = TW / kRun;
-          for (int e = tid; e < nm * nrun * 2; e += kNT) {
-            const int lr = e % nm, rest = e / nm;
-            const int c0 = (rest % nrun) * kRun, pl = rest / nrun;
-            const float* src = ab + (pl * STEP + lr) * g.PM + c0;
-            float* dst = x2 + (pl * RING + (m_lo + lr) % RING) * PQ + c0;
-            run_sums1([&](int j) { return src[j]; }, k, kRun,
-                      [&](int i, float sx) { dst[i] = sx; });
-          }
-        } else {
-          constexpr int nblk = TW / kRB;
-          for (int e = tid; e < nm * nblk * 2; e += kNT) {
-            const int lr = e % nm, rest = e / nm;
-            const int c0 = (rest % nblk) * kRB, pl = rest / nblk;
-            float sx[kRB];
-            window_sums<kRB>(ab + (pl * STEP + lr) * g.PM + c0, 1, k, kRB, sx);
-            float* dst = x2 + pl * RING * PQ + ((m_lo + lr) % RING) * PQ + c0;
-#pragma unroll
-            for (int i = 0; i < kRB; ++i) dst[i] = sx[i];
-          }
+        constexpr int nrun = kTW / kRun;
+        for (int e = tid; e < nm * nrun * 2; e += kNT) {
+          const int lr = e % nm, rest = e / nm;
+          const int c0 = (rest % nrun) * kRun, pl = rest / nrun;
+          const float* src = ab + (pl * STEP + lr) * g.PM + c0;
+          float* dst = x2 + (pl * RING + (m_lo + lr) % RING) * PQ + c0;
+          run_sums1([&](int j) { return src[j]; }, k, kRun,
+                    [&](int i, float sx) { dst[i] = sx; });
         }
       }
       __syncthreads();
 
       // 5. y-sums over X2 -> box(a), box(b) of the output rows whose
       // windows end in this step's a/b rows: output row o needs M rows
-      // o .. o + 2R.
+      // o .. o + 2R.  One run per kRun rows down a column, one plane per
+      // task.
       const int o_lo = max(0, m_lo - P), o_hi = min(band, m_hi - P);
       const int nq = o_hi - o_lo;
       if (nq > 0) {
-        if constexpr ((RUNS & 8) != 0) {
-          // One run per kRun rows down a column, one plane per task.
-          const int nrun = (nq + kRun - 1) / kRun;
-          for (int e = tid; e < TW * nrun * 2; e += kNT) {
-            const int c = e % TW, rest = e / TW;
-            const int o0 = o_lo + (rest % nrun) * kRun, pl = rest / nrun;
-            const float* plane = x2 + pl * RING * PQ + c;
-            const int slot0 = o0 % RING;
-            float* dst = qs + (pl * STEP + o0 - o_lo) * PQ + c;
-            run_sums1([&](int j) {
-              int sl = slot0 + j;
-              if (sl >= RING) sl -= RING;
-              return plane[sl * PQ];
-            }, k, min(kRun, o_hi - o0), [&](int i, float sy) { dst[i * PQ] = sy; });
-          }
-        } else {
-          const int nblk = (nq + kRB - 1) / kRB;
-          for (int e = tid; e < TW * nblk * 2; e += kNT) {
-            const int c = e % TW, rest = e / TW;
-            const int o0 = o_lo + (rest % nblk) * kRB, pl = rest / nblk;
-            const int nv = min(kRB, o_hi - o0);
-            const float* plane = x2 + pl * RING * PQ + c;
-            const int slot0 = o0 % RING;
-            float sy[kRB];
-            window_sums<kRB>([&](int j) {
-              int sl = slot0 + j;
-              if (sl >= RING) sl -= RING;
-              return plane[sl * PQ];
-            }, k, nv, sy);
-#pragma unroll
-            for (int i = 0; i < kRB; ++i)
-              if (i < nv) qs[(pl * STEP + o0 + i - o_lo) * PQ + c] = sy[i];
-          }
+        const int nrun = (nq + kRun - 1) / kRun;
+        for (int e = tid; e < kTW * nrun * 2; e += kNT) {
+          const int c = e % kTW, rest = e / kTW;
+          const int o0 = o_lo + (rest % nrun) * kRun, pl = rest / nrun;
+          const float* plane = x2 + pl * RING * PQ + c;
+          const int slot0 = o0 % RING;
+          float* dst = qs + (pl * STEP + o0 - o_lo) * PQ + c;
+          run_sums1([&](int j) {
+            int sl = slot0 + j;
+            if (sl >= RING) sl -= RING;
+            return plane[sl * PQ];
+          }, k, min(kRun, o_hi - o0), [&](int i, float sy) { dst[i * PQ] = sy; });
         }
       }
       __syncthreads();
@@ -377,8 +321,8 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
       // it: the next step writes cost, X1, ab and X2 first and qs only
       // after four barriers; each output has one owner thread, the same
       // in every slice.
-      for (int e = tid; e < nq * TW; e += kNT) {
-        const int lr = e / TW, c = e % TW, o = o_lo + lr;
+      for (int e = tid; e < nq * kTW; e += kNT) {
+        const int lr = e / kTW, c = e % kTW, o = o_lo + lr;
         const int gy = y0 + o, gx = x0 + c;
         if (gy >= H || gx >= W) continue;
         const float area = window_area(gy, gx, H, W, R);
@@ -398,50 +342,44 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
   }
 }
 
-template <int TW, int STEP, int RUNS, bool GL2>
+template <int STEP>
 cudaError_t launch(const uint8_t* gray1, const uint8_t* gray2, float* best,
                    float* dmap, float* scratch, int N, int band, const Params& p,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes(TW, p.R, band, p.D, STEP, GL2);
+  const size_t smem = smem_bytes(p.R, band, p.D, STEP);
   cudaError_t err = cudaFuncSetAttribute(
-      guided_wta_stream_kernel<TW, STEP, RUNS, GL2>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      guided_wta_stream_kernel<STEP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.W + TW - 1) / TW, (p.H + band - 1) / band, N);
-  guided_wta_stream_kernel<TW, STEP, RUNS, GL2><<<grid, dim3(kTileW, kBY), smem, stream>>>(
+  const dim3 grid((p.W + kTW - 1) / kTW, (p.H + band - 1) / band, N);
+  guided_wta_stream_kernel<STEP><<<grid, dim3(kTileW, kBY), smem, stream>>>(
       gray1, gray2, best, dmap, scratch, p, band);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Dynamic shared memory K1 needs for a tile width (32 or 64), a radius, a
-// band height, a slice count, a step of `step` rows and the guide
-// statistics in shared memory (l2 = 0) or in the scratch (bytes).  The
-// wrapper picks the step and the band with it.
-extern "C" long long guided_wta_stream_smem_bytes(int TW, int R, int band, int D, int step,
-                                                  int l2) {
-  return (long long)smem_bytes(TW, R, band, D, step, l2 != 0);
+// Dynamic shared memory K1 needs for a radius, a band height, a slice
+// count and a step of `step` rows (bytes).  The wrapper picks the step
+// and the band with it.
+extern "C" long long guided_wta_stream_smem_bytes(int R, int band, int D, int step) {
+  return (long long)smem_bytes(R, band, D, step);
 }
 
-// Bytes of device scratch one K1 launch with l2 needs (the guide
-// statistics of every CTA) for N frames of H x W.
-extern "C" long long guided_wta_stream_scratch_bytes(int TW, int R, int band, int N, int H,
-                                                     int W) {
-  const long long ctas = (long long)((W + TW - 1) / TW) * ((H + band - 1) / band) * N;
-  return ctas * (long long)(guide_floats(TW, R, band) * sizeof(float));
+// Bytes of device scratch one K1 launch needs (the guide statistics of
+// every CTA) for N frames of H x W.
+extern "C" long long guided_wta_stream_scratch_bytes(int R, int band, int N, int H, int W) {
+  const long long ctas = (long long)((W + kTW - 1) / kTW) * ((H + band - 1) / band) * N;
+  return ctas * (long long)(guide_floats(R, band) * sizeof(float));
 }
 
 // Launches K1 on `stream`.  gray1/gray2: uint8 (N, H, W) contiguous;
 // best/dmap: float32 (N, H, W); scratch: device memory of
-// guided_wta_stream_scratch_bytes when l2.  The shapes measured: TW 32 or
-// 64 output columns per CTA, band >= 1 output rows per CTA, step 16 or 8,
-// runs (the passes that sum runs) and l2 as in the K1_CASE list below.
-// Returns the CUDA error of the launch (0 on success).
+// guided_wta_stream_scratch_bytes.  band (output rows per CTA) >= 1, step
+// 16 or 8.  Returns the CUDA error of the launch (0 on success).
 extern "C" int guided_wta_stream_launch(const void* gray1, const void* gray2,
                                         void* best, void* dmap, void* scratch, int N, int H,
-                                        int W, int dmin, int D, int R, int TW,
-                                        int band, int step, int runs, int l2,
+                                        int W, int dmin, int D, int R, int band, int step,
                                         float one_m_alpha, float alpha,
                                         float th_color, float th_grad, float oob,
                                         double eps, void* stream) {
@@ -454,26 +392,9 @@ extern "C" int guided_wta_stream_launch(const void* gray1, const void* gray2,
   auto* m = static_cast<float*>(dmap);
   auto* sc = static_cast<float*>(scratch);
   auto st = static_cast<cudaStream_t>(stream);
-#define K1_CASE(tw, st_, runs_, l2_)                                                   \
-  if (TW == tw && step == st_ && runs == runs_ && (l2 != 0) == l2_)                    \
-    return (int)launch<tw, st_, runs_, l2_>(g1, g2, b, m, sc, N, band, p, st);
-  K1_CASE(32, 16, 0, false)
-  K1_CASE(32, 16, 13, false)
-  K1_CASE(32, 16, 15, false)
-  K1_CASE(32, 8, 0, false)
-  K1_CASE(32, 8, 13, false)
-  K1_CASE(32, 8, 15, false)
-  K1_CASE(64, 16, 0, false)
-  K1_CASE(64, 16, 13, false)
-  K1_CASE(64, 16, 15, false)
-  K1_CASE(64, 8, 0, false)
-  K1_CASE(64, 8, 13, false)
-  K1_CASE(64, 8, 15, false)
-  K1_CASE(32, 16, 15, true)
-  K1_CASE(64, 16, 15, true)
-  K1_CASE(64, 16, 13, true)
-  K1_CASE(64, 8, 15, true)
-  K1_CASE(64, 8, 13, true)
-#undef K1_CASE
-  return (int)cudaErrorInvalidValue;
+  switch (step) {
+    case 16: return (int)launch<16>(g1, g2, b, m, sc, N, band, p, st);
+    case 8: return (int)launch<8>(g1, g2, b, m, sc, N, band, p, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -58,11 +58,11 @@ _LAUNCH_ARGS = [_I] * 7 + [_F] * 5 + [ctypes.c_double, _P]
 _SIGNATURES = {
     "guided_wta_launch": (_I, [_P] * 4 + _LAUNCH_ARGS),
     "guided_wta_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
-    "guided_wta_stream_launch": (_I, [_P] * 5 + [_I] * 11 + [_F] * 5
+    "guided_wta_stream_launch": (_I, [_P] * 5 + [_I] * 8 + [_F] * 5
                                  + [ctypes.c_double, _P]),
-    "guided_wta_stream_smem_bytes": (ctypes.c_longlong, [_I] * 6),
-    "guided_wta_stream_scratch_bytes": (ctypes.c_longlong, [_I] * 6),
-    "lr_fill_launch": (_I, [_P, _P, _P, _P] + [_I] * 8 + [_P]),
+    "guided_wta_stream_smem_bytes": (ctypes.c_longlong, [_I] * 4),
+    "guided_wta_stream_scratch_bytes": (ctypes.c_longlong, [_I] * 5),
+    "lr_fill_launch": (_I, [_P, _P, _P, _P] + [_I] * 7 + [_P]),
     "lr_fill_smem_bytes": (ctypes.c_longlong, [_I]),
     "guided_wta_dual_launch": (_I, [_P] * 7 + _LAUNCH_ARGS),
     "guided_wta_dual_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
@@ -262,34 +262,30 @@ _BANDS = tuple(range(128, 0, -8))
 _STEPS = (16, 8)
 _WALK_BANDS = tuple(b for b in _BANDS if b <= 96)
 
-# K1's launch variants, for the measurements: tile width (32 or 64
-# output columns per CTA), the passes that sum runs (bit mask,
-# csrc/guided_wta_stream.cu) and the guide statistics in an L2 scratch.
-_K1_TILE_W = 32
-_K1_RUNS = 15
-_K1_GUIDE_L2 = False
+# K1's tile width (output columns per CTA, csrc/guided_wta_stream.cu
+# kTW): with the guide statistics in L2, 64 columns at band 96 beat 32
+# columns by 22% at 6 MP (PERF.md, Findings: K2 and K1 redesigned).
+_K1_TILE_W = 64
 
 
 @functools.lru_cache(maxsize=None)
-def guided_wta_stream_step(radius: int, size_d: int, tile_w: int = _K1_TILE_W,
-                           l2: bool = _K1_GUIDE_L2) -> int | None:
+def guided_wta_stream_step(radius: int, size_d: int) -> int | None:
     """K1's step: the first of ``_STEPS`` whose lowest band fits one
     block's shared memory; None if none does."""
     lib = build()["lib"]
     return next((step for step in _STEPS
-                 if lib.guided_wta_stream_smem_bytes(tile_w, radius, _WALK_BANDS[-1], size_d,
-                                                     step, l2) <= _SMEM_LIMIT), None)
+                 if lib.guided_wta_stream_smem_bytes(radius, _WALK_BANDS[-1], size_d, step)
+                 <= _SMEM_LIMIT), None)
 
 
 @functools.lru_cache(maxsize=None)
 def guided_wta_stream_band_rows(radius: int, size_d: int, h: int, w: int,
-                                n_sm: int, step: int, tile_w: int = _K1_TILE_W,
-                                l2: bool = _K1_GUIDE_L2) -> int:
+                                n_sm: int, step: int) -> int:
     """K1's band height, of 96, 88, .., 8 (``_pick_rows``), for steps of
     ``step`` rows."""
     lib = build()["lib"]
-    band = _pick_rows({b: lib.guided_wta_stream_smem_bytes(tile_w, radius, b, size_d, step, l2)
-                       for b in _WALK_BANDS}, _K1_CTAS_PER_SM, h, w, n_sm, tile_w)
+    band = _pick_rows({b: lib.guided_wta_stream_smem_bytes(radius, b, size_d, step)
+                       for b in _WALK_BANDS}, _K1_CTAS_PER_SM, h, w, n_sm, _K1_TILE_W)
     if band is None:
         raise ValueError(f"radius {radius} with {size_d} disparities needs more "
                          "shared memory than one block has (row-walk kernel)")
@@ -297,26 +293,18 @@ def guided_wta_stream_band_rows(radius: int, size_d: int, h: int, w: int,
 
 
 def guided_wta_stream(gray1, gray2, best, dmap, dmin, size_d, radius,
-                      constants, eps, band=None, step=None, tile_w=_K1_TILE_W,
-                      runs=_K1_RUNS, l2=_K1_GUIDE_L2) -> None:
+                      constants, eps, band=None, step=None) -> None:
     """Launch K1 (csrc/guided_wta_stream.cu) on the current stream;
     arguments as guided_wta.  ``step`` (16 or 8) defaults to
     ``guided_wta_stream_step`` and ``band`` (output rows per CTA) to
-    ``guided_wta_stream_band_rows``; they, ``tile_w``, ``runs`` and ``l2``
-    are set only to test or measure other shapes of the kernel."""
-    lib = build()["lib"]
-    n, h, w = gray1.shape
-    step = step or guided_wta_stream_step(radius, size_d, tile_w, l2) or _STEPS[-1]
+    ``guided_wta_stream_band_rows``; they are set only to test or measure
+    other shapes of the kernel."""
+    _, h, w = gray1.shape
+    step = step or guided_wta_stream_step(radius, size_d) or _STEPS[-1]
     if band is None:
-        band = guided_wta_stream_band_rows(radius, size_d, h, w, _n_sm(gray1.device), step,
-                                           tile_w, l2)
-    scratch = torch.empty(lib.guided_wta_stream_scratch_bytes(tile_w, radius, band, n, h, w)
-                          if l2 else 0, dtype=torch.uint8, device=gray1.device)
-    err = lib.guided_wta_stream_launch(
-        gray1.data_ptr(), gray2.data_ptr(), best.data_ptr(), dmap.data_ptr(),
-        scratch.data_ptr(), n, h, w, dmin, size_d, radius, tile_w, band, step, runs, int(l2),
-        *constants, float(eps), _stream(gray1))
-    _check(err, "guided_wta_stream_launch")
+        band = guided_wta_stream_band_rows(radius, size_d, h, w, _n_sm(gray1.device), step)
+    _launch_with_scratch("guided_wta_stream", (band, step), gray1, gray2, (best, dmap), dmin,
+                         size_d, radius, constants, eps)
 
 
 @functools.lru_cache(maxsize=None)
@@ -397,17 +385,16 @@ def guided_wta_dual_stream(gray_l, gray_r, outs, dmin, size_d, radius,
 
 
 def lr_fill(dl, dr, occ, filled, dmin, size_d, d_lr, d_occlusion,
-            v_min, rows_per_cta=1) -> None:
+            v_min) -> None:
     """Launch K2 (csrc/lr_fill.cu) on the current stream.  dl/dr/occ/filled:
     float32 (..., W), contiguous; every row is independent, so a (N, H, W)
-    batch is N*H rows of one launch, bit-identical to per-frame launches.
-    ``rows_per_cta`` (1, 2, 4 or 8) is set only to measure other shapes."""
+    batch is N*H rows of one launch, bit-identical to per-frame launches."""
     lib = build()["lib"]
     w = dl.shape[-1]
     h = dl.numel() // w
-    if rows_per_cta * lib.lr_fill_smem_bytes(w) > _SMEM_LIMIT:
+    if lib.lr_fill_smem_bytes(w) > _SMEM_LIMIT:
         raise ValueError(f"row width {w} exceeds the post kernel's shared memory")
     err = lib.lr_fill_launch(
         dl.data_ptr(), dr.data_ptr(), occ.data_ptr(), filled.data_ptr(),
-        h, w, dmin, size_d, d_lr, d_occlusion, v_min, rows_per_cta, _stream(dl))
+        h, w, dmin, size_d, d_lr, d_occlusion, v_min, _stream(dl))
     _check(err, "lr_fill_launch")

@@ -184,7 +184,7 @@ def k1_table(monkeypatch):
     cleared."""
     class Lib:
         @staticmethod
-        def guided_wta_stream_smem_bytes(tile_w, radius, band, size_d, step, l2):
+        def guided_wta_stream_smem_bytes(radius, band, size_d, step):
             return K1_BASE[radius, step] + 219 * band
 
     pickers = (_kernels.guided_wta_stream_step, _kernels.guided_wta_stream_band_rows)
@@ -200,7 +200,7 @@ def k1_table(monkeypatch):
 def test_k1_step(k1_table, radius, step):
     """16-row steps where the lowest band fits one block, else 8, else
     none (the wrapper then raises from the band picker)."""
-    assert _kernels.guided_wta_stream_step(radius, 16, 64, True) == step
+    assert _kernels.guided_wta_stream_step(radius, 16) == step
 
 
 @pytest.mark.parametrize("step", [16, 8])
@@ -210,9 +210,9 @@ def test_k1_band_rows(k1_table, step, hw, band):
     """At R=9 every band fits two CTAs per SM; the bands stop at 96, and
     the tallest of those that still gives the frame a CTA per SM wins
     (288x384: 6 x 36 = 216 CTAs of 64 columns at 8 rows, 108 at 16)."""
-    assert _kernels.guided_wta_stream_band_rows(9, 16, *hw, N_SM, step, 64, True) == band
+    assert _kernels.guided_wta_stream_band_rows(9, 16, *hw, N_SM, step) == band
 
 
 def test_k1_band_rows_raises_when_nothing_fits(k1_table):
     with pytest.raises(ValueError, match="shared memory"):
-        _kernels.guided_wta_stream_band_rows(38, 16, *BIG, N_SM, 8, 64, True)
+        _kernels.guided_wta_stream_band_rows(38, 16, *BIG, N_SM, 8)
