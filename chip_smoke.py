@@ -15,27 +15,42 @@ the wide-range frames (288x384 at 64 disparities, 1988x2948 at 128:
 K3 + K2), on the dual-view path (``dual_view=True`` and the automatic
 rule at 8 disparities: K4 at 288x384, K5 at 6 MP, + K2),
 ``stereo_pipeline_batch`` on eight 288x384 frames (one K3 per view and
-one K2 for the batch) and the box matcher (K2 only).  It holds every
-path's outputs to the plain path's, times kernels, paths and plain
-versions with CUDA events, splits each path's device time by kernel and
-reads the device's idle share with torch.profiler, and prints two JSON
-lines last: the per-kernel record (with each kernel's bound), then
-``{"ok": true, "device": ...}``.  Any failure raises and exits non-zero;
-with no CUDA device it exits non-zero at once.
+one K2 for the batch) and the box matcher (K2 only).  Then the user's
+entries, each with its launch counts asserted: the CLI
+(``cli.main`` in this process on PNG pairs at 288x384 and 6 MP, with
+``--profile``, and at 6 MP on the dual route: its PNGs equal to
+``compute_disparity``'s, bit for bit), ``--eval`` on the committed
+synthetic-GT scenes (bad-2.0 against the JAX package's recorded scores)
+and the HTTP server (bursts of eight concurrent 288x384 requests and one
+6 MP request, each response equal to a lone frame, micro-batching seen).
+It holds every path's outputs to the plain path's, times kernels, paths
+and plain versions with CUDA events, splits each path's device time by
+kernel and reads the device's idle share with torch.profiler, and prints
+two JSON lines last: the per-kernel record (with each kernel's bound),
+then ``{"ok": true, "device": ...}``.  Any failure raises and exits
+non-zero; with no CUDA device it exits non-zero at once.
 """
 
 from __future__ import annotations
 
+import base64
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
+import time
+import urllib.request
 
 import numpy as np
 import torch
 
 from stereo_matching_cuda_tpu_torch import (
-    DEFAULT_CONFIG, BoxStereoMatcher, StereoConfig, compute_disparity,
+    DEFAULT_CONFIG, BoxStereoMatcher, StereoConfig, cli, compute_disparity, profiling,
     stereo_pipeline_batch)
 from stereo_matching_cuda_tpu_torch.metrics import bad_pixel_rate
 from stereo_matching_cuda_tpu_torch.models import box_stereo_pipeline
@@ -45,7 +60,12 @@ from stereo_matching_cuda_tpu_torch.ops.fused_guided import (
     guided_wta_fused_reference)
 from stereo_matching_cuda_tpu_torch.ops.fused_post import lr_fill_fused, lr_fill_reference
 from stereo_matching_cuda_tpu_torch.pipeline import stereo_pipeline
+from stereo_matching_cuda_tpu_torch.profiling import COUNT_NAMES, profile_path
+from stereo_matching_cuda_tpu_torch.serve import make_server
 from stereo_matching_cuda_tpu_torch.timing import cuda_ms
+from stereo_matching_cuda_tpu_torch.utils.io import (
+    native_available, read_png, write_mat_normalize, write_png)
+from stereo_matching_cuda_tpu_torch.utils.pnm import read_pfm
 from stereo_matching_cuda_tpu_torch.utils.synth import make_scene
 
 DEV = "cuda"
@@ -57,11 +77,10 @@ STRADDLE = StereoConfig(d_min=-8, d_max=8)
 DUAL16 = dataclasses.replace(DEFAULT_CONFIG, dual_view=True)
 STREAM16 = dataclasses.replace(DEFAULT_CONFIG, stream=True)
 STREAM8 = dataclasses.replace(CFG8, stream=True)
-# Kernel function names, as the profiler reports them, by layer.
-KERNEL_NAMES = {"guided_wta_stream_kernel": "K1", "lr_fill_kernel": "K2",
-                "guided_wta_kernel": "K3", "guided_wta_dual_kernel": "K4",
-                "guided_wta_dual_stream_kernel": "K5"}
-COUNT_NAMES = ("K1", "K2", "K3", "K4", "K5")
+REPO = os.path.dirname(os.path.abspath(__file__))
+# bad-2.0 (%) of the JAX package's --eval on tests/data/synthgt, as the
+# repository's verification notes record them.
+SYNTHGT_BAD2 = {"scene0": 0.567, "scene1_wide": 2.34}
 # The matching kernels' bound: the fused fast-path class of the JAX
 # kernels (tests/test_pallas_fused.py:55-57) — near-tie label flips only.
 K1_ATOL, K1_RTOL = 2e-3, 1e-4
@@ -278,14 +297,17 @@ def launches(k1=0, k2=0, k3=0, k4=0, k5=0):
 
 def drive_path(path, runs):
     """Each (name, call, expected launches per kernel) of one path, with
-    every count set to 0 just before the path and read just after.
-    Returns the calls' outputs and the path's counts."""
+    every count set to 0 just before the path and read just after; an
+    expectation may be a function of the call's output.  Returns the
+    calls' outputs and the path's counts."""
     reset_counts()
     outs = []
     for name, call, expect in runs:
         before = counts()
         outs.append(call())
         delta = dict(zip(COUNT_NAMES, (a - b for a, b in zip(counts(), before))))
+        if callable(expect):
+            expect = expect(outs[-1])
         print(f"{path} {name}: launches " + ", ".join(f"{k} {v}" for k, v in delta.items()))
         assert delta == expect, f"{path} {name}: expected launches {expect}, got {delta}"
     total = dict(zip(COUNT_NAMES, counts()))
@@ -456,50 +478,186 @@ def time_batch_and_box(batch, sc, lone_frame_ms, iters):
     return t
 
 
-def kernel_layer(kname):
-    """The layer of a device activity: the kernel whose full function name
-    the profiler's name (demangled or not) contains, else "other".  No
-    kernel's name is a part of another's, so at most one matches."""
-    found = [layer for name, layer in KERNEL_NAMES.items() if name in kname]
-    assert len(found) <= 1, kname
-    return found[0] if found else "other"
+def run_cli(argv):
+    """``cli.main(argv)`` in this process: (stdout, stderr, wall seconds).
+    Fails unless it returns 0."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    assert rc == 0, f"cli {argv}: exit {rc}\n{err.getvalue()}"
+    return out.getvalue(), err.getvalue(), wall
 
 
-def profile_path(name, call, frames, per_call=1, warmup=5):
-    """Device time per frame by layer (K1-K5, the rest) and the device's
-    idle share over ``frames`` calls of ``call`` (each of ``per_call``
-    frames), from torch.profiler: idle share = 1 - (union of
-    device-activity intervals) / (first start to last end)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def drive_cli(tmp, scenes):
+    """The CLI on PNG pairs of each scene (name -> scene at D=16): the
+    default route (2 K3 + 1 K2 a frame), with --profile (its stage table
+    runs each stage profiling.WARMUP + n times: 2 K3 + 1 K2 per frame),
+    and at 6 MP on the dual route (--dual-view on --d-min -7: 1 K5 +
+    1 K2).  Each run's disparity_mapl.png and occlu_mapl_filled.png equal
+    write_mat_normalize of compute_disparity on the card, bit for bit.
+    Returns the path's counts and the stage table TOTAL (ms) by scene."""
+    dual = StereoConfig(d_min=-7, d_max=0, dual_view=True)
+    runs, checks = [], []
+    for name, sc in scenes.items():
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        pair = [os.path.join(d, f) for f in ("left.png", "right.png")]
+        write_png(pair[0], sc["left"])
+        write_png(pair[1], sc["right"])
+        frames = 1 + profiling.WARMUP + profiling.stage_frames(*sc["gt"].shape)
+        todo = [(name, [], DEFAULT_CONFIG, launches(k3=2, k2=1)),
+                (f"{name} --profile", ["--profile"], DEFAULT_CONFIG,
+                 launches(k3=2 * frames, k2=frames))]
+        if name == "1992x3008":
+            todo.append((f"{name} --dual-view on --d-min -7",
+                         ["--dual-view", "on", "--d-min", "-7"], dual, launches(k5=1, k2=1)))
+        for i, (label, flags, cfg, expect) in enumerate(todo):
+            out_dir = os.path.join(d, f"out{i}")
+            runs.append((label, lambda a=[*pair, "-o", out_dir, "--json", *flags]: run_cli(a),
+                         expect))
+            checks.append((label, sc, cfg, out_dir))
+    outs, total = drive_path("cli path", runs)
+    totals = {}
+    for (label, sc, cfg, out_dir), (stdout, stderr, wall) in zip(checks, outs):
+        stats = json.loads(stdout.splitlines()[-1])
+        want = compute_disparity(sc["left"], sc["right"], cfg, DEV)
+        for png, key in (("disparity_mapl.png", "disparity_left"),
+                         ("occlu_mapl_filled.png", "occlusion_filled")):
+            assert np.array_equal(read_png(os.path.join(out_dir, png)),
+                                  write_mat_normalize(want[key])), f"cli {label}: {png}"
+        print(f"cli {label}: wall {wall:.4f} s incl. PNG I/O, pipeline {stats['seconds']} s, "
+              f"PNG I/O {stats['io_seconds']} s ({stats['io_seconds'] / wall:.1%} of wall); "
+              f"PNGs equal to compute_disparity on the card")
+        if "--profile" in label:
+            print(f"cli {label} stage table:\n{stderr.rstrip()}")
+            totals[label.split()[0]] = float(stderr.splitlines()[-1].split()[-2])
+    return total, totals
 
-    for _ in range(warmup):
-        call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
-            call()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    assert spans, f"{name}: the profiler saw no device activity"
-    layers = dict.fromkeys((*COUNT_NAMES, "other"), 0.0)
-    busy, cur_start, cur_end = 0.0, *spans[0][:2]
-    for start, end, kname in spans:
-        layers[kernel_layer(kname)] += end - start
-        if start > cur_end:
-            busy += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    busy += cur_end - cur_start
-    window = spans[-1][1] - spans[0][0]
-    n = frames * per_call
-    per_frame = {k: v / n / 1e3 for k, v in layers.items() if v or k == "other"}
-    print(f"profile {name}: device window {window / n / 1e3:.4f} ms/frame, "
-          + ", ".join(f"{k} {v:.4f} ms/frame" for k, v in per_frame.items())
-          + f", {len(spans) / n:.1f} device activities/frame, "
-          f"device idle share {1 - busy / window:.4f}")
+
+def drive_eval():
+    """``--eval`` on tests/data/synthgt: 2 K3 + 1 K2 per scene, each
+    scene's bad-2.0 within 0.5 points of the JAX package's."""
+    root = os.path.join(REPO, "tests", "data", "synthgt")
+    ((stdout, _, wall),), total = drive_path("eval path", [
+        ("--eval tests/data/synthgt", lambda: run_cli([root, "--eval", "--json"]),
+         launches(k3=4, k2=2))])
+    scenes = json.loads(stdout.splitlines()[-1])["scenes"]
+    for name, ndisp in (("scene0", 16), ("scene1_wide", 64)):
+        got = scenes[name]
+        print(f"eval {name}: {got['height']}x{got['width']} ndisp {got['ndisp']}, bad-2.0 "
+              f"{got['bad_2_0_pct']}% (JAX {SYNTHGT_BAD2[name]}%), epe {got['epe']}")
+        assert got["ndisp"] == ndisp, got
+        assert abs(got["bad_2_0_pct"] - SYNTHGT_BAD2[name]) <= 0.5, got
+    print(f"eval: wall {wall:.4f} s for {len(scenes)} scenes")
+    return total
+
+
+def b64_png(img, tmp):
+    path = os.path.join(tmp, "request.png")
+    write_png(path, img)
+    with open(path, "rb") as f:
+        return base64.b64encode(f.read()).decode()
+
+
+def post(port, body):
+    """(response, client seconds) of one POST /disparity."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/disparity", data=body,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        rep = json.loads(resp.read())
+    return rep, time.perf_counter() - t0
+
+
+def burst(port, bodies):
+    """All ``bodies`` POSTed at once from their own threads: (responses
+    with client seconds, wall seconds of the burst)."""
+    results = [None] * len(bodies)
+    start = threading.Barrier(len(bodies) + 1)
+
+    def client(i):
+        start.wait()
+        results[i] = post(port, bodies[i])
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    assert all(r is not None for r in results), "a serve client got no response"
+    return results, wall
+
+
+def groups_launched(burst_out):
+    """Launches of the groups the server ran for a burst (``burst``'s
+    output): one K3 per view and one K2 per group (a group of n answers n
+    requests)."""
+    n = round(sum(1 / rep["batched_n"] for rep, _ in burst_out[0]))
+    return launches(k3=2 * n, k2=n)
+
+
+def drive_serve(tmp, scenes, big):
+    """The HTTP server on the card: a burst of eight concurrent 288x384
+    requests as ``--serve`` runs them (no coalesce window), one 6 MP
+    request, and the burst again with a 0.1 s coalesce window after the
+    first dequeue.  Every response's PFM equals the lone
+    compute_disparity occlusion_filled bit for bit; each burst's launches
+    are its groups'; the second micro-batches (some batched_n > 1, fewer
+    than 8 K3 launches per view and 8 K2 launches)."""
+    srv = make_server("127.0.0.1", 0, DEFAULT_CONFIG, device=DEV)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    port = srv.server_address[1]
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        print(f"serve healthz: {health}")
+        assert health["backend"] == DEV and health["device"] == torch.cuda.get_device_name(0)
+
+        def body(sc):
+            return json.dumps({"left": b64_png(sc["left"], tmp),
+                               "right": b64_png(sc["right"], tmp)}).encode()
+
+        bodies = [body(sc) for sc in scenes]
+
+        def coalesced_burst():
+            srv.executor.window_s = 0.1
+            return burst(port, bodies)
+
+        outs, total = drive_path("serve path", [
+            (f"burst of {len(scenes)} 288x384", lambda: burst(port, bodies), groups_launched),
+            ("one 1992x3008", lambda: ([post(port, body(big))], None), launches(k3=2, k2=1)),
+            (f"burst of {len(scenes)} 288x384, 0.1 s coalesce window", coalesced_burst,
+             groups_launched)])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    for (results, wall), label, frames in zip(
+            outs, ("burst, no window", "1992x3008", "burst, 0.1 s window"),
+            (scenes, [big], scenes)):
+        for (rep, _), sc in zip(results, frames):
+            path = os.path.join(tmp, "response.pfm")
+            with open(path, "wb") as f:
+                f.write(base64.b64decode(rep["disparity_pfm"]))
+            want = compute_disparity(sc["left"], sc["right"], DEFAULT_CONFIG, DEV,
+                                     keys=("occlusion_filled",))["occlusion_filled"]
+            assert np.array_equal(read_pfm(path), want), f"serve {label}: response differs"
+        lat = sorted(sec for _, sec in results)
+        rate = f", {len(results) / wall:.2f} requests/s" if wall else ""
+        print(f"serve {label}: {len(results)} responses equal to lone frames{rate}, latency "
+              f"s min {lat[0]:.4f} median {lat[len(lat) // 2]:.4f} max {lat[-1]:.4f}, server "
+              f"seconds {[rep['seconds'] for rep, _ in results]}, batched_n "
+              f"{[rep['batched_n'] for rep, _ in results]}")
+    assert max(rep["batched_n"] for rep, _ in outs[2][0]) > 1, "the server did not micro-batch"
+    launched = groups_launched(outs[2])
+    assert launched["K3"] < 2 * len(scenes) and launched["K2"] < len(scenes), launched
+    return total
 
 
 def bound(h, w, size_d, kernel):
@@ -591,12 +749,24 @@ def main() -> int:
         launches(k2=1))])
     check_box(sc_small, box_out)
     path_counts += [batch_counts, box_counts]
+    print("image codec: " + ("native libstereoio" if native_available()
+                             else "pure-Python (native/build/libstereoio.so not built)"))
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_counts, stage_totals = drive_cli(tmp, scenes16)
+        path_counts += [cli_counts, drive_eval(),
+                        drive_serve(tmp, batch_scenes, scenes16["1992x3008"])]
 
     times = {name: time_scene(name, scenes16[name], scenes8[name], iters)
              for name, iters in zip(sizes, (50, 10))}
     wide_times = {name: time_wide(name, sc, cfg, iters)
                   for (name, (sc, cfg)), iters in zip(wide.items(), (20, 3))}
     extra = time_batch_and_box(batch, sc_small, times["288x384"]["frame_ms"], 20)
+    for name in sizes:
+        ratio = stage_totals[name] / times[name]["frame_ms"]
+        print(f"cli {name} stage table TOTAL {stage_totals[name]:.4f} ms against frame_ms "
+              f"{times[name]['frame_ms']:.4f}: ratio {ratio:.4f}")
+    assert 0.85 <= stage_totals["1992x3008"] / times["1992x3008"]["frame_ms"] <= 1.15, \
+        "the 6 MP stage table's TOTAL is not within 15% of the frame's time"
     for name, frames in zip(sizes, (50, 10)):
         sc = scenes16[name]
         left, right = on_card(sc)

@@ -14,8 +14,14 @@ Layout (each module mirrors its JAX counterpart):
   pipeline   — end-to-end pipeline, its batch form and the numpy host
                entries
   models     — the guided and box matchers (nn.Module)
-  metrics    — bad-N / EPE
-  utils      — synthetic scenes with exact ground truth
+  metrics    — bad-N / EPE / occlusion count
+  evaluate   — dataset scoring (Middlebury layout)
+  profiling  — per-stage table, per-kernel device split, trace
+  cli        — ``python -m stereo_matching_cuda_tpu_torch`` (--eval,
+               --profile, --serve, --sequence)
+  serve      — the micro-batching HTTP server
+  utils      — image codecs and I/O, synthetic scenes with exact ground
+               truth
 """
 
 from .config import StereoConfig, DEFAULT_CONFIG  # noqa: F401

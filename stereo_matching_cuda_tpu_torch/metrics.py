@@ -1,6 +1,7 @@
-"""Stereo evaluation metrics, NumPy only: bad-N pixel rate and EPE.
+"""Stereo evaluation metrics and run statistics, NumPy only: bad-N
+pixel rate, EPE and the occlusion count.
 
-A copy of ``stereo_matching_cuda_tpu/metrics.py:14-48``: importing the
+A copy of ``stereo_matching_cuda_tpu/metrics.py:14-58``: importing the
 JAX package imports JAX, which the port's machines need not have.
 """
 
@@ -44,3 +45,14 @@ def end_point_error(disp: np.ndarray, gt: np.ndarray, gt_invalid: float = 0.0) -
         return 0.0
     return float(np.abs(disp - gt)[valid].mean())
 
+
+
+def occlusion_stats(occlusion_map: np.ndarray, v_min: float) -> dict:
+    """Occluded-pixel count/fraction, mirroring detect_occlusionOnCPU's
+    printed count (occlusion.cu:106)."""
+    occ = np.asarray(occlusion_map)
+    n_occl = int((occ.astype(np.int32) < v_min).sum())
+    return {
+        "occluded_pixels": n_occl,
+        "occluded_pct": round(100.0 * n_occl / occ.size, 2),
+    }

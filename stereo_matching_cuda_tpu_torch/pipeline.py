@@ -253,8 +253,14 @@ def compute_disparity_stacked(
     if missing:
         raise ValueError(f"unknown output keys {missing}; available: {sorted(out)}")
     stacked = torch.stack([out[k] for k in keys])
-    if compact and cfg.d_occlusion >= -32768 and cfg.d_max <= 32767:
-        arr = stacked.to(torch.int16).cpu().numpy().astype(np.float32)
-    else:
-        arr = stacked.cpu().numpy()
+    arr = labels_to_host(stacked, cfg) if compact else stacked.cpu().numpy()
     return {k: arr[i] for i, k in enumerate(keys)}
+
+
+def labels_to_host(stacked: torch.Tensor, cfg: StereoConfig) -> np.ndarray:
+    """float32 numpy copy of integer-valued maps (``INTEGER_KEYS``),
+    copied from the device as int16 where every label and the sentinel
+    fit its range (exact, half the bytes), else as float32."""
+    if cfg.d_occlusion >= -32768 and cfg.d_max <= 32767:
+        return stacked.to(torch.int16).cpu().numpy().astype(np.float32)
+    return stacked.cpu().numpy()

@@ -1,8 +1,9 @@
 """Synthetic stereo scenes with exact integer ground-truth disparity.
 
 A NumPy-only copy of ``stereo_matching_cuda_tpu/utils/synth.py``'s
-``make_scene`` (the JAX package cannot be imported where JAX is
-absent); the same seed renders the same scene.  This module renders stereo pairs
+``make_scene`` and ``write_scene_dir`` (:143-157) (the JAX package
+cannot be imported where JAX is absent); the same seed renders the same
+scene.  This module renders stereo pairs
 with *known* geometry instead: textured fronto-parallel layers plus
 staircase slants, composited far-to-near in both views, with the
 occlusion set derived from the actual two-view visibility — i.e. the
@@ -139,3 +140,20 @@ def make_scene(h: int = 240, w: int = 320, ndisp: int = 16,
         "ndisp": ndisp,
     }
 
+
+
+def write_scene_dir(scene_dir: str, scene: dict) -> None:
+    """Write a scene as a Middlebury-layout directory (im0.png, im1.png,
+    disp0.pfm, calib.txt) consumable by ``evaluate.evaluate_dataset``
+    and the CLI's ``--eval``."""
+    import os
+
+    from .io import write_png
+    from .pnm import write_pfm
+
+    os.makedirs(scene_dir, exist_ok=True)
+    write_png(os.path.join(scene_dir, "im0.png"), scene["left"])
+    write_png(os.path.join(scene_dir, "im1.png"), scene["right"])
+    write_pfm(os.path.join(scene_dir, "disp0.pfm"), scene["gt"])
+    with open(os.path.join(scene_dir, "calib.txt"), "w") as f:
+        f.write(f"ndisp={scene['ndisp']}\n")

@@ -79,12 +79,19 @@ def test_validation_matches_jax(kw):
 
 
 def test_import_never_loads_jax():
+    """Every module of the port (the entries and the codecs named, the
+    rest walked) and chip_smoke.py import without JAX or the JAX package."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import stereo_matching_cuda_tpu_torch as p\n"
         "import stereo_matching_cuda_tpu_torch.models\n"
+        "from stereo_matching_cuda_tpu_torch import cli, evaluate, profiling, serve\n"
+        "from stereo_matching_cuda_tpu_torch.utils import (\n"
+        "    imagefmt, io, jpeg, legacyfmt, parse, png, pnm, synth)\n"
+        "import chip_smoke\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "    if m.name != p.__name__ + '.__main__':   # runs the CLI\n"
+        "        importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k.startswith('stereo_matching_cuda_tpu.')\n"
         "             or k == 'stereo_matching_cuda_tpu')\n"

@@ -488,3 +488,116 @@ def test_k1_batch_equals_per_frame_at_each_step(dev, step):
     for i, (a, b) in enumerate(pairs):
         for j, t in enumerate(_k1_at(a, b, DEFAULT_CONFIG.d_min, DEFAULT_CONFIG, **shape)):
             assert torch.equal(batch[j][i], t), (step, i, j)
+
+
+# ---------------------------------------------------------------- entries
+
+def _scene_pngs(tmp_path, h, w, seed):
+    from stereo_matching_cuda_tpu_torch.utils.io import write_png
+
+    sc = make_scene(h, w, ndisp=16, seed=seed)
+    paths = [str(tmp_path / f) for f in ("l.png", "r.png")]
+    write_png(paths[0], sc["left"])
+    write_png(paths[1], sc["right"])
+    return sc, paths
+
+
+@pytest.mark.parametrize("flags,cfg,expect", [
+    ([], DEFAULT_CONFIG, (0, 1, 2, 0, 0)),
+    (["--stream", "on"], dataclasses.replace(DEFAULT_CONFIG, stream=True), (2, 1, 0, 0, 0)),
+    (["--dual-view", "on"], dataclasses.replace(DEFAULT_CONFIG, dual_view=True),
+     (0, 1, 0, 1, 0)),
+], ids=["K3", "K1", "K4"])
+def test_cli_on_the_card_equals_compute_disparity(dev, tmp_path, flags, cfg, expect):
+    """The CLI's PNGs on the card (the default device) equal
+    write_mat_normalize of compute_disparity on the card, bit for bit,
+    and the run launches the route's kernels."""
+    from stereo_matching_cuda_tpu_torch import cli
+    from stereo_matching_cuda_tpu_torch.utils.io import read_png, write_mat_normalize
+
+    sc, paths = _scene_pngs(tmp_path, 72, 120, 3)
+    guided_wta_fused.k1_launches = guided_wta_fused.k3_launches = 0
+    guided_wta_fused_dual.k4_launches = guided_wta_fused_dual.k5_launches = 0
+    lr_fill_fused.launches = 0
+    assert cli.main([*paths, "-o", str(tmp_path / "out"), "--json", *flags]) == 0
+    assert (guided_wta_fused.k1_launches, lr_fill_fused.launches,
+            guided_wta_fused.k3_launches, guided_wta_fused_dual.k4_launches,
+            guided_wta_fused_dual.k5_launches) == expect
+    want = compute_disparity(sc["left"], sc["right"], cfg, dev)
+    for png, key in (("disparity_mapl.png", "disparity_left"),
+                     ("disparity_mapr.png", "disparity_right"),
+                     ("occlu_mapl.png", "occlusion"),
+                     ("occlu_mapl_filled.png", "occlusion_filled")):
+        np.testing.assert_array_equal(read_png(str(tmp_path / "out" / png)),
+                                      write_mat_normalize(want[key]), err_msg=png)
+
+
+def test_serve_burst_of_4_equals_lone_frames(dev):
+    """Four concurrent requests to a server on the card (a coalesce window
+    so they meet in one group) each get the lone frame's map."""
+    import base64
+    import json
+    import os
+    import tempfile
+    import threading
+    import urllib.request
+
+    from stereo_matching_cuda_tpu_torch.serve import make_server
+    from stereo_matching_cuda_tpu_torch.utils.io import write_png
+    from stereo_matching_cuda_tpu_torch.utils.pnm import read_pfm
+
+    def b64(img, tmp):
+        path = os.path.join(tmp, "x.png")
+        write_png(path, img)
+        with open(path, "rb") as f:
+            return base64.b64encode(f.read()).decode()
+
+    scenes = [make_scene(64, 96, ndisp=16, seed=s) for s in range(4)]
+    srv = make_server("127.0.0.1", 0, DEFAULT_CONFIG, batch_window_s=0.2, device=dev)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    results = [None] * len(scenes)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            bodies = [json.dumps({"left": b64(sc["left"], tmp),
+                                  "right": b64(sc["right"], tmp)}).encode()
+                      for sc in scenes]
+
+            def client(i):
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{srv.server_address[1]}/disparity", data=bodies[i],
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    results[i] = json.loads(r.read())
+
+            clients = [threading.Thread(target=client, args=(i,)) for i in range(len(scenes))]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=120)
+            assert not any(c.is_alive() for c in clients)
+            assert max(rep["batched_n"] for rep in results) > 1
+            for sc, rep in zip(scenes, results):
+                path = os.path.join(tmp, "x.pfm")
+                with open(path, "wb") as f:
+                    f.write(base64.b64decode(rep["disparity_pfm"]))
+                want = compute_disparity(sc["left"], sc["right"], DEFAULT_CONFIG, dev)
+                np.testing.assert_array_equal(read_pfm(path), want["occlusion_filled"])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+
+
+@pytest.mark.parametrize("kw", [{}, {"stream": True}, {"dual_view": True},
+                                {"fused": False, "post_fused": True}],
+                         ids=["K3", "K1", "K4", "plain+K2"])
+def test_stage_table_on_the_card_has_the_route_rows(dev, kw):
+    from stereo_matching_cuda_tpu_torch import profiling
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, **kw)
+    sc = make_scene(64, 96, ndisp=16)
+    rows = profiling.stage_table(sc["left"], sc["right"], cfg, dev, n=3)
+    assert [r["stage"] for r in rows] == profiling.stage_names(cfg, dev) + ["TOTAL"]
+    assert all(r["ms"] > 0 for r in rows)
+    assert rows[-1]["ms"] == sum(r["ms"] for r in rows[:-1])
