@@ -15,11 +15,18 @@ the wide-range frames (288x384 at 64 disparities, 1988x2948 at 128:
 K3 + K2), on the dual-view path (``dual_view=True`` and the automatic
 rule at 8 disparities: K4 at 288x384, K5 at 6 MP, + K2),
 ``stereo_pipeline_batch`` on eight 288x384 frames (one K3 per view and
-one K2 for the batch) and the box matcher (K2 only).  Then the user's
+one K2 for the batch) and the box matcher (K2 only).  The shard entry
+``guided_wta_fused_local`` runs K3 and K1 on the 6 MP frame cut into
+extended tiles as a mesh would cut it (x into 2, a 2x2 grid, the 16
+disparities into 2x8), each tile held to its plain version and the
+stitched maps to the whole frame's (bit for bit where the CTAs cover the
+same pixels).  The sharded path runs ``sharded_stereo_pipeline`` over
+NCCL, one rank per card (this process is rank 0; the others are
+spawned), on a (1, 1, world) mesh at 288x384 and 6 MP.  Then the user's
 entries, each with its launch counts asserted: the CLI
 (``cli.main`` in this process on PNG pairs at 288x384 and 6 MP, with
-``--profile``, and at 6 MP on the dual route: its PNGs equal to
-``compute_disparity``'s, bit for bit), ``--eval`` on the committed
+``--profile``, at 6 MP on the dual route and with ``--mesh 1,1,1``: its
+PNGs equal to ``compute_disparity``'s, bit for bit), ``--eval`` on the committed
 synthetic-GT scenes (bad-2.0 against the JAX package's recorded scores)
 and the HTTP server (bursts of eight concurrent 288x384 requests and one
 6 MP request, each response equal to a lone frame, micro-batching seen).
@@ -48,6 +55,8 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from stereo_matching_cuda_tpu_torch import (
     DEFAULT_CONFIG, BoxStereoMatcher, StereoConfig, cli, compute_disparity, profiling,
@@ -57,8 +66,12 @@ from stereo_matching_cuda_tpu_torch.models import box_stereo_pipeline
 from stereo_matching_cuda_tpu_torch.ops import _kernels, rgb_to_grayscale
 from stereo_matching_cuda_tpu_torch.ops.fused_guided import (
     guided_wta_fused, guided_wta_fused_dual, guided_wta_fused_dual_reference,
-    guided_wta_fused_reference)
+    guided_wta_fused_local, guided_wta_fused_local_reference, guided_wta_fused_reference)
 from stereo_matching_cuda_tpu_torch.ops.fused_post import lr_fill_fused, lr_fill_reference
+from stereo_matching_cuda_tpu_torch.parallel import (
+    make_mesh, pipeline_halo, sharded_stereo_pipeline)
+from stereo_matching_cuda_tpu_torch.parallel.multihost import free_port
+from stereo_matching_cuda_tpu_torch.parallel.sharded import combine_d_ranges
 from stereo_matching_cuda_tpu_torch.pipeline import stereo_pipeline
 from stereo_matching_cuda_tpu_torch.profiling import COUNT_NAMES, profile_path
 from stereo_matching_cuda_tpu_torch.serve import make_server
@@ -173,6 +186,232 @@ def check_single(grays):
     return worst, {kernel: [(grays[name][0], m[grays[name][0].d_min],
                              m[grays[name][0].d_min_right]) for name, m in by_name.items()]
                    for kernel, by_name in maps.items()}
+
+
+def extend(g, oy, ox, th, tw, hy, hx):
+    """The (th + 2hy, tw + 2hx) tile of an (H, W) image around the interior
+    at (oy, ox), zeros beyond the image: what the halo exchanges give a
+    rank."""
+    padded = torch.nn.functional.pad(g, (hx, hx, hy, hy))
+    return padded[oy:oy + th + 2 * hy, ox:ox + tw + 2 * hx].contiguous()
+
+
+def check_shard_entry(cfg, gl, gr):
+    """K3 and K1 through the shard entry ``guided_wta_fused_local`` on the
+    frame (``gl``, ``gr``) cut into extended tiles as a mesh cuts it: x
+    into 2, a 2x2 grid, and the disparities into 2 ranges of 8 (the whole
+    frame as the tile), both views.  Each tile is held to
+    guided_wta_fused_local_reference at the fused bound; the stitched maps
+    to the whole-frame launch of the same kernel: K3 bit for bit on the x
+    split (its 32-column CTAs cover the same pixels) and on the d split
+    (combined with the ascending rule), within the bound on the grid
+    (off K3's row grid) and for K1 (bands picked per tile).  Launch
+    counts asserted.  Returns each kernel's max |best - plain|."""
+    h, w = gl.shape
+    hy, hx = pipeline_halo(cfg)
+    d_half = cfg.size_d // 2
+    cuts = {"x split into 2": [(0, x, h, w // 2, 0, None) for x in (0, w // 2)],
+            "2x2 grid": [(y, x, h // 2, w // 2, 0, None) for y in (0, h // 2)
+                         for x in (0, w // 2)],
+            f"d split into 2x{d_half}": [(0, 0, h, w, k * d_half, d_half) for k in (0, 1)]}
+    kernels = {"K3": dataclasses.replace(cfg, stream=False),
+               "K1": dataclasses.replace(cfg, stream=True)}
+    worst = {kernel: 0.0 for kernel in kernels}
+    bound = k1_max_mismatch(h * w)
+    reset_counts()
+    for view, (g1, g2, dmin) in {"left": (gl, gr, cfg.d_min),
+                                 "right": (gr, gl, cfg.d_min_right)}.items():
+        whole = {kernel: guided_wta_fused(g1, g2, dmin, c) for kernel, c in kernels.items()}
+        for cut, tiles in cuts.items():
+            parts = {kernel: [] for kernel in kernels}
+            for oy, ox, th, tw, dk, n in tiles:
+                e1, e2 = extend(g1, oy, ox, th, tw, hy, hx), extend(g2, oy, ox, th, tw, hy, hx)
+                args = (oy, ox, dmin + dk, cfg, h, w, th, tw, n)
+                best_p, dmap_p = guided_wta_fused_local_reference(e1, e2, *args)
+                for kernel, c in kernels.items():
+                    best, dmap = guided_wta_fused_local(e1, e2, oy, ox, dmin + dk, c, h, w,
+                                                        th, tw, n)
+                    torch.cuda.synchronize()
+                    mism = int((dmap != dmap_p).sum())
+                    assert mism <= k1_max_mismatch(th * tw), \
+                        f"shard entry {kernel} {view} {cut} tile ({oy}, {ox}): {mism} flips"
+                    torch.testing.assert_close(best, best_p, atol=K1_ATOL, rtol=K1_RTOL)
+                    worst[kernel] = max(worst[kernel], float((best - best_p).abs().max()))
+                    parts[kernel].append((best, dmap))
+                del best_p, dmap_p
+            for kernel, outs in parts.items():
+                if cut.startswith("d split"):
+                    best, dmap = combine_d_ranges(*zip(*outs))
+                else:
+                    best, dmap = torch.empty_like(whole[kernel][0]), torch.empty_like(whole[kernel][1])
+                    for (oy, ox, th, tw, _, _), (b, m) in zip(tiles, outs):
+                        best[oy:oy + th, ox:ox + tw] = b
+                        dmap[oy:oy + th, ox:ox + tw] = m
+                mism = int((dmap != whole[kernel][1]).sum())
+                exact = kernel == "K3" and cut != "2x2 grid"
+                print(f"shard entry {kernel} {view} {h}x{w} {cut}: stitched maps against the "
+                      f"whole-frame launch: {mism} label mismatches, max |best| difference "
+                      f"{float((best - whole[kernel][0]).abs().max()):.3g} "
+                      f"({'must be 0' if exact else f'bound {bound}'})")
+                if exact:
+                    assert torch.equal(best, whole[kernel][0]) and torch.equal(dmap, whole[kernel][1]), \
+                        f"shard entry {kernel} {view} {cut}: not the whole frame's bits"
+                else:
+                    assert mism <= bound, f"shard entry {kernel} {view} {cut}: {mism} flips"
+                    torch.testing.assert_close(best, whole[kernel][0], atol=K1_ATOL, rtol=K1_RTOL)
+    tiles = sum(len(t) for t in cuts.values())
+    got = counts()
+    want = (2 * (1 + tiles), 0, 2 * (1 + tiles), 0, 0)
+    print(f"shard entry: launches (K1, K2, K3, K4, K5) {got}, expected {want}")
+    assert got == want, "shard entry launch counts"
+    return worst
+
+
+def sharded_runs(mesh, scenes, world):
+    """The sharded path's calls, the same on every rank: (name, call,
+    expected launches in this process) of sharded_stereo_pipeline on each
+    scene's global (1, H, W, 3) batch, default (K3) and stream=True (K1);
+    K2 runs where x is not split (world 1)."""
+    runs = []
+    for name, sc in scenes.items():
+        batch = (sc["left"][None], sc["right"][None])
+        for label, cfg, kernel in (("default", DEFAULT_CONFIG, "k3"), ("stream=True", STREAM16, "k1")):
+            runs.append((f"{name} {label}",
+                         lambda b=batch, c=cfg: sharded_stereo_pipeline(*b, mesh, c),
+                         launches(**{kernel: 2, "k2": 1 if world == 1 else 0})))
+    return runs
+
+
+def run_sharded(scenes, world, lead, iters):
+    """The sharded path on a (1, 1, world) mesh, called by every rank of
+    an initialized NCCL group; ``lead`` (rank 0) asserts the launch counts
+    and times, the others make the same collective calls.  Returns (the
+    calls' outputs, their counts, the timings) on rank 0."""
+    mesh = make_mesh(1, 1, world)
+    runs = sharded_runs(mesh, scenes, world)
+    if lead:
+        outs, total = drive_path(f"sharded path (NCCL, world size {world})", runs)
+    else:
+        outs, total = [call() for _, call, _ in runs], None
+    left, right = on_card(scenes["1992x3008"])
+
+    def frame():
+        return sharded_stereo_pipeline(left[None], right[None], mesh, DEFAULT_CONFIG)
+
+    t = {"sharded_frame_ms": cuda_ms(frame, iters)}
+    if lead:
+        t["frame_ms"] = cuda_ms(lambda: stereo_pipeline(left, right, DEFAULT_CONFIG), iters)
+    top_kernels(f"sharded 1992x3008 (1,1,{world}) frame", frame, iters)
+    return outs, total, t
+
+
+def top_kernels(name, call, frames, warmup=3, n=12):
+    """The ``n`` device functions that take the most time per call of
+    ``call``, from torch.profiler over ``frames`` calls after warm-up
+    (where the sharded frame's time goes beyond the kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            call()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    total = sum(by_name.values())
+    print(f"top kernels {name}: device busy {total / frames / 1e3:.4f} ms/call; " + "; ".join(
+        f"{k[:70]} {v / frames / 1e3:.4f}" for k, v in
+        sorted(by_name.items(), key=lambda kv: -kv[1])[:n]))
+
+
+def sharded_rank(i, world, port, iters):
+    """Rank i + 1 of the sharded path, on card i + 1 (spawned)."""
+    torch.cuda.set_device(i + 1)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=i + 1)
+    try:
+        scenes = {name: make_scene(*hw, ndisp=16) for name, hw in
+                  (("288x384", (288, 384)), ("1992x3008", (1992, 3008)))}
+        run_sharded(scenes, world, False, iters)
+    finally:
+        dist.destroy_process_group()
+
+
+def drive_sharded(scenes, iters=10):
+    """The sharded path over NCCL with one rank per card: this process is
+    rank 0 on card 0, the others are spawned.  At world size 1 the four
+    maps equal compute_disparity's bit for bit (origin 0: the same CTAs;
+    whole rows: K2); above it they are held within 2e-3 of the pixels.
+    Returns the path's counts and timings."""
+    world = torch.cuda.device_count()
+    port = free_port()
+    print(f"sharded path: NCCL, one rank per card, world size {world}")
+    ctx = (mp.start_processes(sharded_rank, args=(world, port, iters), nprocs=world - 1,
+                              join=False, start_method="spawn") if world > 1 else None)
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=world, rank=0)
+        try:
+            outs, total, t = run_sharded(scenes, world, True, iters)
+        finally:
+            dist.destroy_process_group()
+        if ctx is not None:
+            deadline = time.monotonic() + 600
+            while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+                if time.monotonic() > deadline:
+                    raise AssertionError("a sharded rank did not finish in 600 s")
+    finally:
+        if ctx is not None:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+    keys = ("disparity_left", "disparity_right", "occlusion", "occlusion_filled")
+    for (name, _, _), out in zip(sharded_runs(None, scenes, world), outs):
+        sc = scenes[name.split()[0]]
+        cfg = STREAM16 if "stream" in name else DEFAULT_CONFIG
+        want = compute_disparity(sc["left"], sc["right"], cfg, DEV)
+        n = want["disparity_left"].size
+        mism = {k: int((out[k][0].cpu().numpy() != want[k]).sum()) for k in keys}
+        print(f"sharded {name}: mismatches against compute_disparity {mism} "
+              f"({'must be 0' if world == 1 else f'bound {int(2e-3 * n)}'})")
+        for k in keys:
+            assert mism[k] == 0 if world == 1 else mism[k] <= 2e-3 * n, (name, k, mism[k])
+        assert out["mean_left"].dtype == torch.uint8 and out["best_cost_left"].isfinite().all()
+    print(f"timing sharded 1992x3008 (1,1,{world}): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in t.items())
+        + f"; sharded/frame {t['sharded_frame_ms'] / t['frame_ms']:.4f}")
+    return total, t
+
+
+def drive_cli_mesh(tmp, sc):
+    """``--mesh 1,1,1`` at 6 MP on the PNG pair drive_cli wrote: the CLI
+    forms its own one-rank NCCL group (2 K3 + 1 K2); its four PNGs equal
+    write_mat_normalize of compute_disparity on the card, bit for bit."""
+    d = os.path.join(tmp, "1992x3008")
+    out_dir = os.path.join(d, "mesh")
+    ((stdout, _, wall),), total = drive_path("cli --mesh path", [(
+        "--mesh 1,1,1 1992x3008",
+        lambda: run_cli([os.path.join(d, "left.png"), os.path.join(d, "right.png"), "-o",
+                         out_dir, "--json", "--mesh", "1,1,1"]),
+        launches(k3=2, k2=1))])
+    assert not dist.is_initialized(), "the CLI left its process group open"
+    want = compute_disparity(sc["left"], sc["right"], DEFAULT_CONFIG, DEV)
+    for png, key in (("disparity_mapl.png", "disparity_left"),
+                     ("disparity_mapr.png", "disparity_right"),
+                     ("occlu_mapl.png", "occlusion"),
+                     ("occlu_mapl_filled.png", "occlusion_filled")):
+        assert np.array_equal(read_png(os.path.join(out_dir, png)),
+                              write_mat_normalize(want[key])), f"cli --mesh: {png}"
+    stats = json.loads(stdout.splitlines()[-1])
+    print(f"cli --mesh 1,1,1 1992x3008: wall {wall:.4f} s incl. PNG I/O and the group's "
+          f"set-up, pipeline {stats['seconds']} s; 4 PNGs equal to compute_disparity on the "
+          f"card")
+    return total
 
 
 def label_maps(cfg, h, w, seed):
@@ -719,6 +958,8 @@ def main() -> int:
     k4_err, k4_maps = check_dual("K4", dual_grays)
     k5_err, k5_maps = check_dual("K5", dual_grays)
     k2_err = check_k2(single_maps["K3"] + single_maps["K1"] + k4_maps + k5_maps)
+    shard_err = check_shard_entry(DEFAULT_CONFIG, *single_grays["1992x3008 D=16"][1])
+    single_err = {k: max(single_err[k], shard_err[k]) for k in single_err}
     del single_grays, dual_grays, single_maps, k4_maps, k5_maps
 
     path_counts = [
@@ -748,12 +989,13 @@ def main() -> int:
         "BoxStereoMatcher 288x384", lambda: box_matcher.compute(sc_small["left"], sc_small["right"]),
         launches(k2=1))])
     check_box(sc_small, box_out)
-    path_counts += [batch_counts, box_counts]
+    sharded_counts, sharded_times = drive_sharded(scenes16)
+    path_counts += [batch_counts, box_counts, sharded_counts]
     print("image codec: " + ("native libstereoio" if native_available()
                              else "pure-Python (native/build/libstereoio.so not built)"))
     with tempfile.TemporaryDirectory() as tmp:
         cli_counts, stage_totals = drive_cli(tmp, scenes16)
-        path_counts += [cli_counts, drive_eval(),
+        path_counts += [cli_counts, drive_cli_mesh(tmp, scenes16["1992x3008"]), drive_eval(),
                         drive_serve(tmp, batch_scenes, scenes16["1992x3008"])]
 
     times = {name: time_scene(name, scenes16[name], scenes8[name], iters)
@@ -820,7 +1062,8 @@ def main() -> int:
             "bound_by": bound_by,
             # no single PyTorch call computes the guided WTA or the LR check + fill
             "library_ms": None})
-    print(f"wide-range timings {json.dumps(wide_times)}; batch and box {json.dumps(extra)}")
+    print(f"wide-range timings {json.dumps(wide_times)}; batch and box {json.dumps(extra)}; "
+          f"sharded {json.dumps(sharded_times)}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -2,8 +2,8 @@
 ``stereo_matching_cuda_tpu/cli.py``): the reference's main()
 (main.cu:37-214) with every constant a flag, the 12 output PNGs of the
 reference under --dump-intermediates, dataset scoring (--eval), frame
-sequences (--sequence), a per-stage table (--profile) and the HTTP
-server (--serve).
+sequences (--sequence), a per-stage table (--profile), the HTTP
+server (--serve) and the sharded multi-device path (--mesh).
 
 Every mode runs on the card (``--device cuda``, the default) unless the
 caller asks for the CPU with ``--device cpu``; on a machine with no CUDA
@@ -14,8 +14,12 @@ bit-identical to the JAX package's NumPy oracle.
 The JAX package's TPU scheduling flags (--staged, --y-sum, --vmem-mb,
 --slice-group, --unroll-max, --sw-pipeline, --fast) and its compile
 cache have no counterpart: the port's config has none of their fields
-and compiles nothing per shape.  --mesh waits for the port's
-multi-device path.
+and compiles nothing per shape.
+
+--mesh B,Y,X[,D] runs ``parallel.sharded_stereo_pipeline`` on the frame
+broadcast B times, one rank per device: under a launcher (``torchrun``)
+every rank runs the CLI and rank 0 writes the PNGs; a lone process forms
+a one-rank group (NCCL on --device cuda, gloo on --device cpu).
 
 Usage:
   python -m stereo_matching_cuda_tpu_torch left.png right.png -o outdir/
@@ -92,7 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cost aggregation family: guided filter (reference "
                         "semantics) or plain box mean (SAD+box baseline)")
     p.add_argument("--mesh", default=None, metavar="B,Y,X[,D]",
-                   help="multi-device mesh (not ported yet)")
+                   help="run sharded over ranks: mesh sizes over (batch, "
+                        "tile-rows, tile-cols, disparity-ranges), e.g. 1,2,4 "
+                        "or 1,2,2,2; the world must have B*Y*X*D ranks")
     p.add_argument("--eval", action="store_true",
                    help="LEFT is a dataset root (Middlebury layout: scene "
                         "dirs with im0.png/im1.png, disp0.pfm GT, calib.txt "
@@ -178,9 +184,38 @@ def _run_sequence(args, cfg, device) -> int:
     return 0
 
 
+def _run_mesh(args, left, right, cfg, device):
+    """The sharded pipeline on ``left``/``right`` broadcast over the mesh's
+    b axis: (dict of the first frame's numpy maps, this rank), or an exit
+    code."""
+    try:
+        sizes = [int(v) for v in args.mesh.split(",")]
+    except ValueError:
+        sizes = []
+    if len(sizes) == 3:
+        sizes.append(1)
+    if len(sizes) != 4 or min(sizes) < 1:
+        return _error("--mesh wants B,Y,X or B,Y,X,D (positive integers)")
+    b, y, x, d = sizes
+    import torch.distributed as dist
+
+    from .parallel import make_mesh, sharded_stereo_pipeline
+    from .parallel.multihost import process_group
+
+    with process_group("nccl" if device.type == "cuda" else "gloo"):
+        try:
+            mesh = make_mesh(b, y, x, d, device_type=device.type)
+            out = sharded_stereo_pipeline(np.broadcast_to(left, (b, *left.shape)),
+                                          np.broadcast_to(right, (b, *right.shape)), mesh, cfg)
+        except ValueError as e:   # world size, tile sizes, divisibility
+            return _error(str(e))
+        rank = dist.get_rank()
+    return {k: v[0].cpu().numpy() for k, v in out.items()}, rank
+
+
 def _serve(args, cfg, device) -> int:
     for flag, on in [("--eval", args.eval), ("--sequence", args.sequence),
-                     ("--oracle", args.oracle),
+                     ("--oracle", args.oracle), ("--mesh", args.mesh),
                      ("positional image arguments", args.left)]:
         if on:
             return _error(f"--serve does not combine with {flag}")
@@ -217,7 +252,8 @@ def _serve(args, cfg, device) -> int:
 def _eval(args, cfg, device) -> int:
     if args.right is not None:
         return _error("--eval takes a single dataset root, not a pair")
-    for flag, on in [("--sequence", args.sequence), ("--oracle", args.oracle),
+    for flag, on in [("--mesh", args.mesh), ("--sequence", args.sequence),
+                     ("--oracle", args.oracle),
                      ("--aggregation box", args.aggregation == "box"),
                      ("--profile", args.profile)]:
         if on:
@@ -250,9 +286,13 @@ def main(argv=None) -> int:
         )
     except ValueError as e:   # config validation (config.py __post_init__)
         return _error(str(e))
-    if args.mesh:
-        return _error("--mesh is not ported yet (the multi-device path); "
-                      "run on one device")
+    if args.mesh and args.exact:
+        return _error("--mesh does not support --exact (the sharded pipeline "
+                      "uses per-tile window origins; run the parity mode on one "
+                      "device)")
+    if args.mesh and args.aggregation != "guided":
+        return _error(f"--mesh only supports --aggregation guided, got "
+                      f"{args.aggregation!r}")
     if args.oracle and args.aggregation != "guided":
         return _error("--oracle implements the reference (guided) pipeline "
                       "only; drop --aggregation box or --oracle")
@@ -278,7 +318,7 @@ def main(argv=None) -> int:
     if args.sequence:
         # the sequence runner drives the pipeline only: reject modes it
         # would silently ignore
-        for flag, on in [("--oracle", args.oracle), ("--gt", args.gt),
+        for flag, on in [("--oracle", args.oracle), ("--mesh", args.mesh), ("--gt", args.gt),
                          ("--profile", args.profile),
                          ("--dump-intermediates", args.dump_intermediates)]:
             if on:
@@ -309,6 +349,13 @@ def main(argv=None) -> int:
         exact = dataclasses.replace(cfg, exact_integral=True, fused=False,
                                     post_fused=False)
         out = compute_disparity(left, right, exact, device, full_outputs=True)
+    elif args.mesh:
+        ran = _run_mesh(args, left, right, cfg, device)
+        if isinstance(ran, int):
+            return ran
+        out, rank = ran
+        if rank != 0:       # rank 0 writes the outputs
+            return 0
     elif args.aggregation == "box":
         out = _compute_fn(args)(left, right, cfg, device)
     else:
@@ -325,8 +372,8 @@ def main(argv=None) -> int:
     write_png(os.path.join(args.out, "occlu_mapl_filled.png"), _normalize(out["occlusion_filled"]))
     if args.dump_intermediates and "gray_left" not in out:
         print("note: --dump-intermediates intermediates are unavailable on "
-              "this path (--aggregation box has no guided-filter "
-              "intermediates)", file=sys.stderr)
+              "this path (--mesh returns final maps only; --aggregation box "
+              "has no guided-filter intermediates)", file=sys.stderr)
     if args.dump_intermediates and "gray_left" in out:
         write_png(os.path.join(args.out, "image_left.png"), out["gray_left"])
         write_png(os.path.join(args.out, "image_right.png"), out["gray_right"])
@@ -364,12 +411,12 @@ def main(argv=None) -> int:
         stats["bad_2_0_pct"] = round(bad_pixel_rate(disp, gt, 2.0), 3)
         stats["epe"] = round(end_point_error(disp, gt), 3)
     if args.profile:
-        if args.oracle or args.aggregation == "box":
-            # the stage table covers the guided pipeline; profiling a
-            # different path than the one that produced the outputs
-            # would mislead
-            return _error("--profile covers the guided pipeline; it does not "
-                          "combine with --oracle/--aggregation box")
+        if args.oracle or args.mesh or args.aggregation == "box":
+            # the stage table covers the guided one-device pipeline;
+            # profiling a different path than the one that produced the
+            # outputs would mislead
+            return _error("--profile covers the guided one-device pipeline; it "
+                          "does not combine with --oracle/--mesh/--aggregation box")
         from .profiling import print_stage_table, stage_table
 
         print_stage_table(stage_table(left, right, cfg, device), file=sys.stderr)

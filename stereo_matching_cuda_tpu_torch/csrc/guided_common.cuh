@@ -53,11 +53,22 @@ constexpr int kRun = 8;
 // 32 warps per SM) where the tile has the rows, else 8.
 __host__ __device__ constexpr int block_rows(int TH) { return TH >= 16 ? 16 : 8; }
 
+// Tiles with an origin (K1, K3).  H, W are the global image's.  The input
+// buffers are Hb x Wb frames whose (0, 0) is global (oy, ox): a tile of
+// the image extended by a halo.  A read at global (gy, gx) is zero outside
+// the image, and also outside the buffer (such pixels are read only for
+// outputs outside the interior: the wrapper checks that the halo covers
+// the kernel's reach).  The grid covers the interior, Hi x Wi at global
+// (iy, ix), and the outputs are Hi x Wi frames.  A whole frame is origin
+// 0 with buffer = interior = image (make_params).
 struct Params {
   int H, W, dmin, D, R;
   int pos, neg;                  // max(0, d_max), max(0, -d_min) (dual kernels)
   float one_m_alpha, alpha, th_color, th_grad, oob;
   double eps;
+  int Hb, Wb, oy, ox;            // input buffer: size and global origin
+  int ry0, ry1, cx0, cx1;        // global rows / columns in the image and the buffer
+  int iy, ix, Hi, Wi;            // interior: global origin and size
 };
 
 __host__ inline Params make_params(int H, int W, int dmin, int D, int R,
@@ -66,7 +77,35 @@ __host__ inline Params make_params(int H, int W, int dmin, int D, int R,
                                    double eps) {
   const int dmax = dmin + D - 1;
   return Params{H, W, dmin, D, R, dmax > 0 ? dmax : 0, dmin < 0 ? -dmin : 0,
-                one_m_alpha, alpha, th_color, th_grad, oob, eps};
+                one_m_alpha, alpha, th_color, th_grad, oob, eps,
+                H, W, 0, 0, 0, H, 0, W, 0, 0, H, W};
+}
+
+// The buffer (Hb x Wb, its (0, 0) at global (oy, ox)) and the interior
+// (Hi x Wi at offset (hy, hx) in the buffer) of a tile.
+__host__ inline void set_tile(Params& p, int Hb, int Wb, int oy, int ox, int hy,
+                              int hx, int Hi, int Wi) {
+  p.Hb = Hb;
+  p.Wb = Wb;
+  p.oy = oy;
+  p.ox = ox;
+  p.ry0 = oy > 0 ? oy : 0;
+  p.ry1 = oy + Hb < p.H ? oy + Hb : p.H;
+  p.cx0 = ox > 0 ? ox : 0;
+  p.cx1 = ox + Wb < p.W ? ox + Wb : p.W;
+  p.iy = oy + hy;
+  p.ix = ox + hx;
+  p.Hi = Hi;
+  p.Wi = Wi;
+}
+
+// Input pixel at global (gy, gx) of one frame of a tile's buffer (see
+// Params), zero outside the image and the buffer.
+__device__ inline uint8_t buffer_px(const uint8_t* __restrict__ buf, int gy, int gx,
+                                    const Params& p) {
+  return (gy >= p.ry0 && gy < p.ry1 && gx >= p.cx0 && gx < p.cx1)
+             ? buf[(size_t)(gy - p.oy) * p.Wb + (gx - p.ox)]
+             : (uint8_t)0;
 }
 
 // out[i] = at(i) + ... + at(i + k - 1) for i < nv <= RB.  The RB windows

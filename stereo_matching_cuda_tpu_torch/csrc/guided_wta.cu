@@ -16,7 +16,13 @@
 //   if (best >= q) {best = q; dmap = d}   (ascending d: largest d wins ties)
 // A (N, H, W) batch rides blockIdx.z (the TPU kernel's batched grid mode);
 // the tile height does not depend on N, so each frame of a batch is
-// computed as a lone launch computes it, bit for bit.
+// computed as a lone launch computes it, bit for bit.  The inputs may be
+// tiles of a larger image, extended by a halo, with the global origin
+// of their (0, 0) (Params in guided_common.cuh; the sharded path's
+// ops/fused_guided.py::guided_wta_fused_local, as the TPU kernel's
+// origin scalars): every coordinate, mask and window area is global,
+// so a CTA whose output columns and rows are the same global ones
+// computes the same bits as in a whole-frame launch.
 //
 // Design.  One CTA owns a 32 x TH output tile and recomputes its 2R halo,
 // as the TPU kernel's tiles do.  The CTA loads both uint8 input
@@ -125,28 +131,25 @@ guided_wta_kernel(const uint8_t* __restrict__ gray1,
 
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kTileW + tx;
-  const size_t frame = (size_t)blockIdx.z * H * W;
-  gray1 += frame;
-  gray2 += frame;
-  best_out += frame;
-  dmap_out += frame;
-  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * TH;
+  gray1 += (size_t)blockIdx.z * p.Hb * p.Wb;
+  gray2 += (size_t)blockIdx.z * p.Hb * p.Wb;
+  best_out += (size_t)blockIdx.z * p.Hi * p.Wi;
+  dmap_out += (size_t)blockIdx.z * p.Hi * p.Wi;
+  // Global coordinates from here on: the tile's interior starts at
+  // (iy, ix), and the outputs end at (yend, xend).
+  const int x0 = p.ix + blockIdx.x * kTileW, y0 = p.iy + blockIdx.y * TH;
+  const int yend = p.iy + p.Hi, xend = p.ix + p.Wi;
   const int ye = y0 - P, xe = x0 - P;        // global origin of the E region
   const int ym = y0 - R, xm = x0 - R;        // global origin of the M region
 
-  // Input windows, zero outside the image.  i1s column c holds global
-  // column xe - 1 + c; i2s column c holds xe + dmin - 1 + c.
+  // Input windows, zero outside the image (and the buffer).  i1s column
+  // c holds global column xe - 1 + c; i2s column c holds xe + dmin - 1 + c.
   for (int r = ty; r < g.ER; r += BY) {
     const int gy = ye + r;
-    const bool row_in = gy >= 0 && gy < H;
-    for (int c = tx; c < g.I1C; c += kTileW) {
-      const int gx = xe - 1 + c;
-      i1s[r * g.I1C + c] = (row_in && gx >= 0 && gx < W) ? gray1[(size_t)gy * W + gx] : 0;
-    }
-    for (int c = tx; c < g.I2C; c += kTileW) {
-      const int gx = xe + p.dmin - 1 + c;
-      i2s[r * g.I2C + c] = (row_in && gx >= 0 && gx < W) ? gray2[(size_t)gy * W + gx] : 0;
-    }
+    for (int c = tx; c < g.I1C; c += kTileW)
+      i1s[r * g.I1C + c] = buffer_px(gray1, gy, xe - 1 + c, p);
+    for (int c = tx; c < g.I2C; c += kTileW)
+      i2s[r * g.I2C + c] = buffer_px(gray2, gy, xe + p.dmin - 1 + c, p);
   }
   __syncthreads();
 
@@ -257,7 +260,7 @@ guided_wta_kernel(const uint8_t* __restrict__ gray1,
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const int gy = y0 + yq + i, gx = x0 + tx;
-        if (gy < H && gx < W) {
+        if (gy < yend && gx < xend) {
           const float area = window_area(gy, gx, H, W, R);
           const float iv = (float)i1s[(yq + i + P) * g.I1C + tx + P + 1];
           const float q = (sa[i] / area) * iv + sb[i] / area;
@@ -273,9 +276,10 @@ guided_wta_kernel(const uint8_t* __restrict__ gray1,
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int gy = y0 + yq + i, gx = x0 + tx;
-    if (gy < H && gx < W) {
-      best_out[(size_t)gy * W + gx] = best[i];
-      dmap_out[(size_t)gy * W + gx] = dmap[i];
+    if (gy < yend && gx < xend) {
+      const size_t at = (size_t)(gy - p.iy) * p.Wi + (gx - p.ix);
+      best_out[at] = best[i];
+      dmap_out[at] = dmap[i];
     }
   }
 }
@@ -288,7 +292,7 @@ cudaError_t launch(const uint8_t* gray1, const uint8_t* gray2, float* best,
   cudaError_t err = cudaFuncSetAttribute(
       guided_wta_kernel<TH, BY>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.W + kTileW - 1) / kTileW, (p.H + TH - 1) / TH, N);
+  const dim3 grid((p.Wi + kTileW - 1) / kTileW, (p.Hi + TH - 1) / TH, N);
   guided_wta_kernel<TH, BY><<<grid, dim3(kTileW, BY), smem, stream>>>(
       gray1, gray2, best, dmap, p);
   return cudaGetLastError();
@@ -302,17 +306,21 @@ extern "C" long long guided_wta_smem_bytes(int R, int TH, int D) {
   return (long long)smem_bytes(R, TH, D);
 }
 
-// Launches K3 on `stream`.  gray1/gray2: uint8 (N, H, W) contiguous;
-// best/dmap: float32 (N, H, W).  TH must be 8, 16 or 32.  Returns the CUDA
-// error of the launch (0 on success).
+// Launches K3 on `stream`.  gray1/gray2: uint8 (N, Hb, Wb) contiguous,
+// tiles of an H x W image whose (0, 0) is at global (oy, ox); best/dmap:
+// float32 (N, Hi, Wi), the interior at offset (hy, hx) in the tile (see
+// Params; a whole frame is Hb = Hi = H, Wb = Wi = W, the rest 0).  TH must
+// be 8, 16 or 32.  Returns the CUDA error of the launch (0 on success).
 extern "C" int guided_wta_launch(const void* gray1, const void* gray2,
                                  void* best, void* dmap, int N, int H, int W,
-                                 int dmin, int D, int R, int TH,
+                                 int Hb, int Wb, int oy, int ox, int hy, int hx,
+                                 int Hi, int Wi, int dmin, int D, int R, int TH,
                                  float one_m_alpha, float alpha,
                                  float th_color, float th_grad, float oob,
                                  double eps, void* stream) {
-  const Params p = make_params(H, W, dmin, D, R, one_m_alpha, alpha, th_color,
-                               th_grad, oob, eps);
+  Params p = make_params(H, W, dmin, D, R, one_m_alpha, alpha, th_color,
+                         th_grad, oob, eps);
+  set_tile(p, Hb, Wb, oy, ox, hy, hx, Hi, Wi);
   const auto* g1 = static_cast<const uint8_t*>(gray1);
   const auto* g2 = static_cast<const uint8_t*>(gray2);
   auto* b = static_cast<float*>(best);

@@ -8,6 +8,8 @@
 //
 // What it computes: exactly K3's function (guided_wta.cu), with the
 // ascending `best >= q` tie rule.  A (N, H, W) batch rides blockIdx.z.
+// Like K3 it takes tiles with a global origin (Params in
+// guided_common.cuh); the band is picked for the interior.
 //
 // Design.  The TPU kernel walks each column strip top to bottom and
 // carries, per slice, 2R rows of window sums between sequential grid
@@ -129,29 +131,27 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
   float* mean_i = scratch + cta * guide_floats(R, band);
   float* c_i = mean_i + g.MB * g.MC;
 
-  const size_t frame = (size_t)blockIdx.z * H * W;
-  gray1 += frame;
-  gray2 += frame;
-  best_out += frame;
-  dmap_out += frame;
+  gray1 += (size_t)blockIdx.z * p.Hb * p.Wb;
+  gray2 += (size_t)blockIdx.z * p.Hb * p.Wb;
+  best_out += (size_t)blockIdx.z * p.Hi * p.Wi;
+  dmap_out += (size_t)blockIdx.z * p.Hi * p.Wi;
   const int tid = threadIdx.y * kTileW + threadIdx.x;
-  const int x0 = blockIdx.x * kTW, y0 = blockIdx.y * band;
+  // Global coordinates from here on: the tile's interior starts at
+  // (iy, ix), and the outputs end at (yend, xend).
+  const int x0 = p.ix + blockIdx.x * kTW, y0 = p.iy + blockIdx.y * band;
+  const int yend = p.iy + p.Hi, xend = p.ix + p.Wi;
   const int ye = y0 - P, xe = x0 - P;        // global origin of the band's E rows / columns
   const int ym = y0 - R, xm = x0 - R;        // global origin of its M rows / columns
 
-  // Input windows of the whole band, zero outside the image.  i1s column
-  // c holds global column xe - 1 + c; i2s column c holds xe + dmin - 1 + c.
+  // Input windows of the whole band, zero outside the image (and the
+  // buffer).  i1s column c holds global column xe - 1 + c; i2s column c
+  // holds xe + dmin - 1 + c.
   for (int r = threadIdx.y; r < g.NR; r += kBY) {
     const int gy = ye + r;
-    const bool row_in = gy >= 0 && gy < H;
-    for (int c = threadIdx.x; c < g.I1C; c += kTileW) {
-      const int gx = xe - 1 + c;
-      i1s[r * g.I1C + c] = (row_in && gx >= 0 && gx < W) ? gray1[(size_t)gy * W + gx] : 0;
-    }
-    for (int c = threadIdx.x; c < g.I2C; c += kTileW) {
-      const int gx = xe + p.dmin - 1 + c;
-      i2s[r * g.I2C + c] = (row_in && gx >= 0 && gx < W) ? gray2[(size_t)gy * W + gx] : 0;
-    }
+    for (int c = threadIdx.x; c < g.I1C; c += kTileW)
+      i1s[r * g.I1C + c] = buffer_px(gray1, gy, xe - 1 + c, p);
+    for (int c = threadIdx.x; c < g.I2C; c += kTileW)
+      i2s[r * g.I2C + c] = buffer_px(gray2, gy, xe + p.dmin - 1 + c, p);
   }
   __syncthreads();
 
@@ -324,11 +324,11 @@ guided_wta_stream_kernel(const uint8_t* __restrict__ gray1,
       for (int e = tid; e < nq * kTW; e += kNT) {
         const int lr = e / kTW, c = e % kTW, o = o_lo + lr;
         const int gy = y0 + o, gx = x0 + c;
-        if (gy >= H || gx >= W) continue;
+        if (gy >= yend || gx >= xend) continue;
         const float area = window_area(gy, gx, H, W, R);
         const float iv = (float)i1s[(o + P) * g.I1C + c + P + 1];
         const float q = (qs[lr * PQ + c] / area) * iv + qs[(STEP + lr) * PQ + c] / area;
-        const size_t at = (size_t)gy * W + gx;
+        const size_t at = (size_t)(gy - p.iy) * p.Wi + (gx - p.ix);
         const float b = s ? best_out[at] : best_init();
         if (b >= q) {
           best_out[at] = q;
@@ -351,7 +351,7 @@ cudaError_t launch(const uint8_t* gray1, const uint8_t* gray2, float* best,
       guided_wta_stream_kernel<STEP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.W + kTW - 1) / kTW, (p.H + band - 1) / band, N);
+  const dim3 grid((p.Wi + kTW - 1) / kTW, (p.Hi + band - 1) / band, N);
   guided_wta_stream_kernel<STEP><<<grid, dim3(kTileW, kBY), smem, stream>>>(
       gray1, gray2, best, dmap, scratch, p, band);
   return cudaGetLastError();
@@ -367,25 +367,30 @@ extern "C" long long guided_wta_stream_smem_bytes(int R, int band, int D, int st
 }
 
 // Bytes of device scratch one K1 launch needs (the guide statistics of
-// every CTA) for N frames of H x W.
+// every CTA) for N output frames (interiors) of H x W.
 extern "C" long long guided_wta_stream_scratch_bytes(int R, int band, int N, int H, int W) {
   const long long ctas = (long long)((W + kTW - 1) / kTW) * ((H + band - 1) / band) * N;
   return ctas * (long long)(guide_floats(R, band) * sizeof(float));
 }
 
-// Launches K1 on `stream`.  gray1/gray2: uint8 (N, H, W) contiguous;
-// best/dmap: float32 (N, H, W); scratch: device memory of
-// guided_wta_stream_scratch_bytes.  band (output rows per CTA) >= 1, step
-// 16 or 8.  Returns the CUDA error of the launch (0 on success).
+// Launches K1 on `stream`.  gray1/gray2: uint8 (N, Hb, Wb) contiguous,
+// tiles of an H x W image whose (0, 0) is at global (oy, ox); best/dmap:
+// float32 (N, Hi, Wi), the interior at offset (hy, hx) in the tile (see
+// Params; a whole frame is Hb = Hi = H, Wb = Wi = W, the rest 0); scratch:
+// device memory of guided_wta_stream_scratch_bytes for the interior.
+// band (output rows per CTA) >= 1, step 16 or 8.  Returns the CUDA error
+// of the launch (0 on success).
 extern "C" int guided_wta_stream_launch(const void* gray1, const void* gray2,
                                         void* best, void* dmap, void* scratch, int N, int H,
-                                        int W, int dmin, int D, int R, int band, int step,
-                                        float one_m_alpha, float alpha,
+                                        int W, int Hb, int Wb, int oy, int ox, int hy,
+                                        int hx, int Hi, int Wi, int dmin, int D, int R,
+                                        int band, int step, float one_m_alpha, float alpha,
                                         float th_color, float th_grad, float oob,
                                         double eps, void* stream) {
   if (band < 1) return (int)cudaErrorInvalidValue;
-  const Params p = make_params(H, W, dmin, D, R, one_m_alpha, alpha, th_color,
-                               th_grad, oob, eps);
+  Params p = make_params(H, W, dmin, D, R, one_m_alpha, alpha, th_color,
+                         th_grad, oob, eps);
+  set_tile(p, Hb, Wb, oy, ox, hy, hx, Hi, Wi);
   const auto* g1 = static_cast<const uint8_t*>(gray1);
   const auto* g2 = static_cast<const uint8_t*>(gray2);
   auto* b = static_cast<float*>(best);

@@ -41,6 +41,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -55,10 +56,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # N, H, W, dmin, D, R, tile or band rows; the cost constants; eps; stream.
 _LAUNCH_ARGS = [_I] * 7 + [_F] * 5 + [ctypes.c_double, _P]
+# The same with a tile (K1, K3): N, H, W, Hb, Wb, oy, ox, hy, hx, Hi, Wi,
+# dmin, D, R, tile or band rows (and K1's step); the rest as above.
+_TILE_LAUNCH_ARGS = [_I] * 15 + [_F] * 5 + [ctypes.c_double, _P]
 _SIGNATURES = {
-    "guided_wta_launch": (_I, [_P] * 4 + _LAUNCH_ARGS),
+    "guided_wta_launch": (_I, [_P] * 4 + _TILE_LAUNCH_ARGS),
     "guided_wta_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
-    "guided_wta_stream_launch": (_I, [_P] * 5 + [_I] * 8 + [_F] * 5
+    "guided_wta_stream_launch": (_I, [_P] * 5 + [_I] * 16 + [_F] * 5
                                  + [ctypes.c_double, _P]),
     "guided_wta_stream_smem_bytes": (ctypes.c_longlong, [_I] * 4),
     "guided_wta_stream_scratch_bytes": (ctypes.c_longlong, [_I] * 5),
@@ -220,19 +224,75 @@ def guided_wta_tile_rows(radius: int, size_d: int) -> int:
                             f"radius {radius} with {size_d} disparities")
 
 
+class Tile(NamedTuple):
+    """Where the input buffers and the outputs of a K1 or K3 launch lie in
+    the global image.  The buffers are tiles of the image extended by a
+    halo (zeros beyond the image), the outputs their interior."""
+
+    h: int       # the global image's height
+    w: int       # and width
+    oy: int      # global row of the buffer's (0, 0)
+    ox: int      # and its column
+    hy: int      # the interior's offset in the buffer: rows
+    hx: int      # and columns
+    th: int      # the interior's height
+    tw: int      # and width
+
+    @classmethod
+    def whole(cls, h: int, w: int) -> "Tile":
+        """A whole frame: origin 0, buffer = interior = image."""
+        return cls(h, w, 0, 0, 0, 0, h, w)
+
+
+def check_tile(tile: Tile, hb: int, wb: int, radius: int, dmin: int, size_d: int) -> None:
+    """Raise ValueError unless the (hb, wb) buffer holds the interior and
+    every pixel of the image that the kernel reads for it: 2R rows and
+    2R + 1 + max |d| columns (d in dmin .. dmin + size_d - 1) on each side,
+    as far as the image reaches.  The kernels read such pixels from the
+    buffer and nothing else of the image, so a short halo would change the
+    result; it is refused here."""
+    iy, ix = tile.oy + tile.hy, tile.ox + tile.hx
+    if not (0 <= tile.hy and tile.hy + tile.th <= hb and 0 <= tile.hx
+            and tile.hx + tile.tw <= wb and 0 <= iy and iy + tile.th <= tile.h
+            and 0 <= ix and ix + tile.tw <= tile.w and tile.th > 0 and tile.tw > 0):
+        raise ValueError(f"{tile} does not fit a {hb}x{wb} buffer inside the image")
+    ry = 2 * radius
+    rx = 2 * radius + 1 + max(abs(dmin), abs(dmin + size_d - 1))
+    if (tile.oy > max(0, iy - ry) or tile.oy + hb < min(tile.h, iy + tile.th + ry)
+            or tile.ox > max(0, ix - rx) or tile.ox + wb < min(tile.w, ix + tile.tw + rx)):
+        raise ValueError(
+            f"the halo of {tile} in a {hb}x{wb} buffer is short of the kernel's "
+            f"reach ({ry} rows, {rx} columns for d in {dmin}..{dmin + size_d - 1})")
+
+
+def _tile_args(gray, outs, tile, radius, dmin, size_d) -> tuple:
+    """The launch's N, H, W, Hb, Wb, oy, ox, hy, hx, Hi, Wi for input
+    buffers ``gray`` (N, Hb, Wb) and ``outs`` (N, Hi, Wi), after
+    ``check_tile`` (``tile`` None: a whole frame)."""
+    n, hb, wb = gray.shape
+    tile = tile or Tile.whole(hb, wb)
+    check_tile(tile, hb, wb, radius, dmin, size_d)
+    for out in outs:
+        if tuple(out.shape) != (n, tile.th, tile.tw):
+            raise ValueError(f"expected outputs of shape {(n, tile.th, tile.tw)}, "
+                             f"got {tuple(out.shape)}")
+    return (n, tile.h, tile.w, hb, wb, tile.oy, tile.ox, tile.hy, tile.hx, tile.th, tile.tw)
+
+
 def guided_wta(gray1, gray2, best, dmap, dmin, size_d, radius, constants,
-               eps, tile_rows=None) -> None:
+               eps, tile_rows=None, tile=None) -> None:
     """Launch K3 (csrc/guided_wta.cu) on the current stream.
-    gray1/gray2: uint8 (N, H, W); best/dmap: float32 (N, H, W).
-    ``tile_rows`` (32, 16 or 8) defaults to ``guided_wta_tile_rows``; it
-    is set only to test or measure the other tile heights."""
+    gray1/gray2: uint8 (N, Hb, Wb); best/dmap: float32 (N, Hi, Wi).
+    ``tile`` (``Tile``) places the buffers and the outputs in the global
+    image; None is a whole frame (Hi, Wi = Hb, Wb).  ``tile_rows`` (32, 16
+    or 8) defaults to ``guided_wta_tile_rows``; it is set only to test or
+    measure the other tile heights."""
     lib = build()["lib"]
-    n, h, w = gray1.shape
+    dims = _tile_args(gray1, (best, dmap), tile, radius, dmin, size_d)
     th = tile_rows or guided_wta_tile_rows(radius, size_d)
     err = lib.guided_wta_launch(
         gray1.data_ptr(), gray2.data_ptr(), best.data_ptr(), dmap.data_ptr(),
-        n, h, w, dmin, size_d, radius, th, *constants, float(eps),
-        _stream(gray1))
+        *dims, dmin, size_d, radius, th, *constants, float(eps), _stream(gray1))
     _check(err, "guided_wta_launch")
 
 
@@ -293,18 +353,19 @@ def guided_wta_stream_band_rows(radius: int, size_d: int, h: int, w: int,
 
 
 def guided_wta_stream(gray1, gray2, best, dmap, dmin, size_d, radius,
-                      constants, eps, band=None, step=None) -> None:
+                      constants, eps, band=None, step=None, tile=None) -> None:
     """Launch K1 (csrc/guided_wta_stream.cu) on the current stream;
     arguments as guided_wta.  ``step`` (16 or 8) defaults to
     ``guided_wta_stream_step`` and ``band`` (output rows per CTA) to
-    ``guided_wta_stream_band_rows``; they are set only to test or measure
-    other shapes of the kernel."""
-    _, h, w = gray1.shape
+    ``guided_wta_stream_band_rows`` of the interior; they are set only to
+    test or measure other shapes of the kernel."""
+    dims = _tile_args(gray1, (best, dmap), tile, radius, dmin, size_d)
     step = step or guided_wta_stream_step(radius, size_d) or _STEPS[-1]
     if band is None:
-        band = guided_wta_stream_band_rows(radius, size_d, h, w, _n_sm(gray1.device), step)
+        band = guided_wta_stream_band_rows(radius, size_d, dims[-2], dims[-1],
+                                           _n_sm(gray1.device), step)
     _launch_with_scratch("guided_wta_stream", (band, step), gray1, gray2, (best, dmap), dmin,
-                         size_d, radius, constants, eps)
+                         size_d, radius, constants, eps, dims)
 
 
 @functools.lru_cache(maxsize=None)
@@ -338,19 +399,21 @@ def guided_wta_dual_stream_band_rows(radius: int, reach: int, h: int, w: int,
 
 
 def _launch_with_scratch(name, shape, gray_l, gray_r, outs, dmin, size_d, radius,
-                         constants, eps) -> None:
+                         constants, eps, dims=None) -> None:
     """Launch `name`_launch (K1, K4, K5) with a scratch of
     `name`_scratch_bytes (the CTAs' guide statistics, which stay in L2).
-    ``shape``: the launch shape's ints, tile or band rows first.  The scratch is freed on
+    ``shape``: the launch shape's ints, tile or band rows first.  ``dims``:
+    K1's ``_tile_args`` (None: N, H, W of ``gray_l``).  The scratch is freed on
     return while the kernel may still run: the caching allocator hands
     it out again only to work queued after it on the same stream."""
     lib = build()["lib"]
-    n, h, w = gray_l.shape
+    dims = dims or tuple(gray_l.shape)
+    n, h, w = dims[0], dims[-2], dims[-1]     # the outputs' frames
     scratch = torch.empty(getattr(lib, f"{name}_scratch_bytes")(radius, shape[0], n, h, w),
                           dtype=torch.uint8, device=gray_l.device)
     err = getattr(lib, f"{name}_launch")(
         gray_l.data_ptr(), gray_r.data_ptr(), *(o.data_ptr() for o in outs),
-        scratch.data_ptr(), n, h, w, dmin, size_d, radius, *shape, *constants,
+        scratch.data_ptr(), *dims, dmin, size_d, radius, *shape, *constants,
         float(eps), _stream(gray_l))
     _check(err, f"{name}_launch")
 

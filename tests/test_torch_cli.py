@@ -183,8 +183,11 @@ def _cuda_missing():
 ERRORS = [
     (["--fused", "on", "--exact"], "incompatible"),
     (["--fused", "on", "--device", "cpu"], "--fused on needs --device cuda"),
-    (["--mesh", "1,1,2"], "not ported"),
-    (["--mesh", "1,1,2", "--exact"], "not ported"),
+    (["--mesh", "1,1,2", "--device", "cpu"], "need"),
+    (["--mesh", "1,1,2", "--exact"], "does not support --exact"),
+    (["--mesh", "1,1,1", "--aggregation", "box"], "only supports --aggregation guided"),
+    (["--mesh", "1,x,1", "--device", "cpu"], "--mesh wants"),
+    (["--mesh", "1,1,1", "--device", "cpu", "--profile"], "--profile covers"),
     (["--oracle", "--aggregation", "box"], "--oracle implements"),
     (["--device", "tpu"], "bad --device"),
     (["--d-min", "0", "--d-max", "-1", "--device", "cpu"], "d_max"),
@@ -201,6 +204,25 @@ def test_errors_exit_2(tmp_path, pair, capsys, extra, msg):
     rc = cli.main([*pair, "-o", str(tmp_path), *extra])
     err = capsys.readouterr().err
     assert rc == 2 and "error:" in err and msg in err, err
+
+
+def test_mesh_1_1_1_equals_unsharded(tmp_path, pair, capsys):
+    """--mesh 1,1,1 on the CPU: a one-rank gloo group of its own (gone
+    after the run), and the PNGs of the one-device run within the sharded
+    bound (tests/test_torch_parallel.py); --dump-intermediates prints the
+    JAX CLI's note."""
+    import torch.distributed as dist
+
+    mesh, lone = str(tmp_path / "mesh"), str(tmp_path / "lone")
+    assert cli.main([*pair, "-o", mesh, "--device", "cpu", "--mesh", "1,1,1",
+                     "--dump-intermediates"]) == 0
+    assert not dist.is_initialized()
+    assert "--mesh returns final maps only" in capsys.readouterr().err
+    assert cli.main([*pair, "-o", lone, "--device", "cpu"]) == 0
+    assert sorted(os.listdir(mesh)) == sorted(f"{n}.png" for n in PNGS[:4])
+    for name in PNGS[:4]:
+        mism = int((_png(mesh, name) != _png(lone, name)).sum())
+        assert mism <= 2e-3 * 64 * 96, (name, mism)
 
 
 def test_input_errors_exit_2(tmp_path, pair, capsys):
@@ -223,6 +245,9 @@ def test_input_errors_exit_2(tmp_path, pair, capsys):
     ["L", "R", "--sequence", "--oracle"],
     ["L", "R", "--sequence", "--profile"],
     ["L", "R", "--sequence", "--dump-intermediates"],
+    ["L", "R", "--sequence", "--mesh", "1,1,1"],
+    ["ROOT", "--eval", "--mesh", "1,1,1"],
+    ["--serve", "0", "--mesh", "1,1,1"],
     ["ROOT", "--eval", "--aggregation", "box"],
     ["ROOT", "--eval", "--profile"],
     ["ROOT", "R", "--eval"],

@@ -79,15 +79,24 @@ def test_validation_matches_jax(kw):
 
 
 def test_import_never_loads_jax():
-    """Every module of the port (the entries and the codecs named, the
-    rest walked) and chip_smoke.py import without JAX or the JAX package."""
+    """Every module of the port (the entries, the codecs and the
+    multi-device layer named, the rest walked) and chip_smoke.py import
+    without JAX or the JAX package, which the child blocks outright."""
     code = (
         "import pkgutil, importlib, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name == 'jax' or name.startswith(('jax.', 'stereo_matching_cuda_tpu.'))\\\n"
+        "                or name == 'stereo_matching_cuda_tpu':\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
         "import stereo_matching_cuda_tpu_torch as p\n"
         "import stereo_matching_cuda_tpu_torch.models\n"
         "from stereo_matching_cuda_tpu_torch import cli, evaluate, profiling, serve\n"
         "from stereo_matching_cuda_tpu_torch.utils import (\n"
         "    imagefmt, io, jpeg, legacyfmt, parse, png, pnm, synth)\n"
+        "import stereo_matching_cuda_tpu_torch.parallel\n"
+        "from stereo_matching_cuda_tpu_torch.parallel import halo, mesh, multihost, sharded\n"
         "import chip_smoke\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    if m.name != p.__name__ + '.__main__':   # runs the CLI\n"

@@ -601,3 +601,99 @@ def test_stage_table_on_the_card_has_the_route_rows(dev, kw):
     assert [r["stage"] for r in rows] == profiling.stage_names(cfg, dev) + ["TOTAL"]
     assert all(r["ms"] > 0 for r in rows)
     assert rows[-1]["ms"] == sum(r["ms"] for r in rows[:-1])
+
+
+def _extend(g, oy, ox, th, tw, hy, hx):
+    """The (th + 2hy, tw + 2hx) tile of a (..., H, W) image around the
+    interior at (oy, ox), zeros beyond the image."""
+    padded = torch.nn.functional.pad(g, (hx, hx, hy, hy))
+    return padded[..., oy:oy + th + 2 * hy, ox:ox + tw + 2 * hx].contiguous()
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["K3", "K1"])
+@pytest.mark.parametrize("oy,ox,th,tw,view,n_slices", [
+    (0, 0, 48, 128, "left", None), (48, 128, 48, 128, "left", None),
+    (0, 128, 48, 128, "right", None), (24, 64, 40, 96, "left", None),
+    (48, 0, 48, 256, "right", 8), (0, 96, 96, 160, "left", 8)],
+    ids=["corner", "corner-far", "top-right", "inside", "bottom-d8", "cols-d8"])
+def test_shard_entry_matches_plain(dev, stream, oy, ox, th, tw, view, n_slices):
+    """K3 and K1 through guided_wta_fused_local at origins inside, at the
+    edges and in the corners of a 96x256 frame, against its plain version
+    on the card (the fused bound), one launch each."""
+    from stereo_matching_cuda_tpu_torch.ops.fused_guided import (
+        guided_wta_fused_local, guided_wta_fused_local_reference)
+    from stereo_matching_cuda_tpu_torch.parallel import pipeline_halo
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, stream=stream)
+    g1, g2 = _pair(96, 256, 7, dev)
+    dmin = cfg.d_min
+    if view == "right":
+        g1, g2, dmin = g2, g1, cfg.d_min_right
+    if n_slices:
+        dmin += n_slices
+    hy, hx = pipeline_halo(cfg)
+    e1, e2 = (_extend(g, oy, ox, th, tw, hy, hx) for g in (g1, g2))
+    guided_wta_fused.k1_launches = guided_wta_fused.k3_launches = 0
+    best, dmap = guided_wta_fused_local(e1, e2, oy, ox, dmin, cfg, 96, 256, th, tw, n_slices)
+    assert (guided_wta_fused.k1_launches,
+            guided_wta_fused.k3_launches) == ((1, 0) if stream else (0, 1))
+    best_p, dmap_p = guided_wta_fused_local_reference(e1, e2, oy, ox, dmin, cfg, 96, 256,
+                                                      th, tw, n_slices)
+    assert best.shape == (th, tw)
+    assert int((dmap != dmap_p).sum()) <= max(4, 2e-3 * th * tw)
+    torch.testing.assert_close(best, best_p, atol=2e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["K3", "K1"])
+def test_shard_entry_whole_frame_is_the_frame_launch(dev, stream):
+    """Origin 0 with a zero halo around the whole frame: the same CTAs and
+    band as guided_wta_fused, so the same bits; a batch is one launch."""
+    from stereo_matching_cuda_tpu_torch.ops.fused_guided import guided_wta_fused_local
+    from stereo_matching_cuda_tpu_torch.parallel import pipeline_halo
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, stream=stream)
+    pairs = [_pair(70, 200, s, dev) for s in (1, 2)]
+    hy, hx = pipeline_halo(cfg)
+    e1, e2 = (torch.nn.functional.pad(torch.stack([p[i] for p in pairs]), (hx, hx, hy, hy))
+              for i in (0, 1))
+    best, dmap = guided_wta_fused_local(e1, e2, 0, 0, cfg.d_min, cfg, 70, 200, 70, 200)
+    for i, (g1, g2) in enumerate(pairs):
+        b, d = guided_wta_fused(g1, g2, cfg.d_min, cfg)
+        assert torch.equal(best[i], b) and torch.equal(dmap[i], d), i
+
+
+def test_shard_entry_k3_x_split_and_d_split_are_the_frame(dev):
+    """An x split at a multiple of K3's 32-column CTA tile covers the same
+    global pixels CTA by CTA, and a d split combined with the ascending
+    rule is the 16-slice WTA: both stitch to the frame's maps bit for
+    bit."""
+    from stereo_matching_cuda_tpu_torch.ops.fused_guided import guided_wta_fused_local
+    from stereo_matching_cuda_tpu_torch.parallel import pipeline_halo
+    from stereo_matching_cuda_tpu_torch.parallel.sharded import combine_d_ranges
+
+    cfg = DEFAULT_CONFIG
+    g1, g2 = _pair(80, 256, 9, dev)
+    hy, hx = pipeline_halo(cfg)
+    best, dmap = guided_wta_fused(g1, g2, cfg.d_min, cfg)
+    parts = [guided_wta_fused_local(_extend(g1, 0, x, 80, 128, hy, hx),
+                                    _extend(g2, 0, x, 80, 128, hy, hx), 0, x, cfg.d_min,
+                                    cfg, 80, 256, 80, 128) for x in (0, 128)]
+    assert torch.equal(torch.cat([p[0] for p in parts], 1), best)
+    assert torch.equal(torch.cat([p[1] for p in parts], 1), dmap)
+    e1, e2 = (_extend(g, 0, 0, 80, 256, hy, hx) for g in (g1, g2))
+    ranges = [guided_wta_fused_local(e1, e2, 0, 0, cfg.d_min + k * 8, cfg, 80, 256, 80, 256,
+                                     n_slices=8) for k in (0, 1)]
+    b, d = combine_d_ranges([r[0] for r in ranges], [r[1] for r in ranges])
+    assert torch.equal(b, best) and torch.equal(d, dmap)
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["K3", "K1"])
+def test_shard_entry_refuses_a_short_halo(dev, stream):
+    from stereo_matching_cuda_tpu_torch.ops.fused_guided import guided_wta_fused_local
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, stream=stream)
+    g = torch.zeros((64 + 2 * 18, 64 + 2 * 30), dtype=torch.uint8, device=dev)
+    guided_wta_fused.k1_launches = guided_wta_fused.k3_launches = 0
+    with pytest.raises(ValueError, match="short"):    # 30 < 2R + 1 + 15 columns
+        guided_wta_fused_local(g, g, 64, 64, cfg.d_min, cfg, 192, 192, 64, 64)
+    assert guided_wta_fused.k1_launches == guided_wta_fused.k3_launches == 0
