@@ -30,9 +30,14 @@ PNGs equal to ``compute_disparity``'s, bit for bit), ``--eval`` on the committed
 synthetic-GT scenes (bad-2.0 against the JAX package's recorded scores)
 and the HTTP server (bursts of eight concurrent 288x384 requests and one
 6 MP request, each response equal to a lone frame, micro-batching seen).
-It holds every path's outputs to the plain path's, times kernels, paths
-and plain versions with CUDA events, splits each path's device time by
-kernel and reads the device's idle share with torch.profiler, and prints
+Then the port's benchmark, ``bench.run`` at the JAX bench's sizes and
+counts in this process: each row's launches its route's, its first frame
+held to the plain path, its JSON line printed as ``bench {...}``, its
+6 MP frame within 15% of the ``timing`` line's.  It holds every path's
+outputs to the plain path's, times kernels, paths and plain versions
+with CUDA events once steady (``timing.steady_ms``; the sharded frame,
+whose ranks must make the same calls, after a fixed warm-up), splits
+each path's device time by kernel and reads the device's idle share with torch.profiler, and prints
 two JSON lines last: the per-kernel record (with each kernel's bound),
 then ``{"ok": true, "device": ...}``.  Any failure raises and exits
 non-zero; with no CUDA device it exits non-zero at once.
@@ -59,7 +64,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from stereo_matching_cuda_tpu_torch import (
-    DEFAULT_CONFIG, BoxStereoMatcher, StereoConfig, cli, compute_disparity, profiling,
+    DEFAULT_CONFIG, BoxStereoMatcher, StereoConfig, bench, cli, compute_disparity, profiling,
     stereo_pipeline_batch)
 from stereo_matching_cuda_tpu_torch.metrics import bad_pixel_rate
 from stereo_matching_cuda_tpu_torch.models import box_stereo_pipeline
@@ -73,9 +78,9 @@ from stereo_matching_cuda_tpu_torch.parallel import (
 from stereo_matching_cuda_tpu_torch.parallel.multihost import free_port
 from stereo_matching_cuda_tpu_torch.parallel.sharded import combine_d_ranges
 from stereo_matching_cuda_tpu_torch.pipeline import stereo_pipeline
-from stereo_matching_cuda_tpu_torch.profiling import COUNT_NAMES, profile_path
+from stereo_matching_cuda_tpu_torch.profiling import COUNT_NAMES, launch_counts, profile_path
 from stereo_matching_cuda_tpu_torch.serve import make_server
-from stereo_matching_cuda_tpu_torch.timing import cuda_ms
+from stereo_matching_cuda_tpu_torch.timing import cuda_ms, steady_ms, window_ms
 from stereo_matching_cuda_tpu_torch.utils.io import (
     native_available, read_png, write_mat_normalize, write_png)
 from stereo_matching_cuda_tpu_torch.utils.pnm import read_pfm
@@ -298,7 +303,11 @@ def run_sharded(scenes, world, lead, iters):
     def frame():
         return sharded_stereo_pipeline(left[None], right[None], mesh, DEFAULT_CONFIG)
 
-    t = {"sharded_frame_ms": cuda_ms(frame, iters)}
+    # Every rank makes the same collective calls, so the sharded frame gets
+    # a fixed warm-up: steady_ms's window count could differ by rank.
+    for _ in range(3):
+        frame()
+    t = {"sharded_frame_ms": window_ms(frame, iters)}
     if lead:
         t["frame_ms"] = cuda_ms(lambda: stereo_pipeline(left, right, DEFAULT_CONFIG), iters)
     top_kernels(f"sharded 1992x3008 (1,1,{world}) frame", frame, iters)
@@ -525,9 +534,7 @@ def reset_counts():
 
 
 def counts():
-    return (guided_wta_fused.k1_launches, lr_fill_fused.launches,
-            guided_wta_fused.k3_launches, guided_wta_fused_dual.k4_launches,
-            guided_wta_fused_dual.k5_launches)
+    return tuple(launch_counts().values())
 
 
 def launches(k1=0, k2=0, k3=0, k4=0, k5=0):
@@ -567,26 +574,29 @@ def drive_frames(path, runs):
 
 
 def check_outputs(name, sc, out, cfg=DEFAULT_CONFIG):
-    """Shapes, finiteness and agreement with the plain path on the card."""
+    """Shapes, finiteness and agreement with the plain path on the card;
+    bad-2.0 too where the scene has ground truth (``sc["gt"]``)."""
     plain = compute_disparity(
         sc["left"], sc["right"],
         chunked(dataclasses.replace(cfg, fused=False, post_fused=False)), DEV)
-    h, w = sc["gt"].shape
+    h, w = sc["left"].shape[:2]
     n = h * w
     for key, v in out.items():
         assert v.shape == (h, w) and v.dtype == np.float32, (key, v.shape, v.dtype)
         assert np.isfinite(v).all(), key
-    bad_k = bad_pixel_rate(np.abs(out["occlusion_filled"]), sc["gt"], 2.0)
-    bad_p = bad_pixel_rate(np.abs(plain["occlusion_filled"]), sc["gt"], 2.0)
     mism = {k: int((out[k] != plain[k]).sum()) for k in out}
-    print(f"{name}: bad-2.0 kernel {bad_k:.4f}%  plain {bad_p:.4f}%  "
-          f"mismatches vs plain {mism}")
+    if sc["gt"] is None:
+        print(f"{name}: no ground truth; mismatches vs plain {mism}")
+    else:
+        bad_k = bad_pixel_rate(np.abs(out["occlusion_filled"]), sc["gt"], 2.0)
+        bad_p = bad_pixel_rate(np.abs(plain["occlusion_filled"]), sc["gt"], 2.0)
+        print(f"{name}: bad-2.0 kernel {bad_k:.4f}%  plain {bad_p:.4f}%  "
+              f"mismatches vs plain {mism}")
+        assert bad_k <= bad_p + 0.5, f"{name}: bad-2.0 {bad_k} vs plain {bad_p}"
     for k in ("disparity_left", "disparity_right"):
         assert mism[k] <= k1_max_mismatch(n), f"{name} {k}: {mism[k]}"
     # each near-tie flip can move one LR verdict and one fill run
     assert mism["occlusion_filled"] <= max(8, int(5e-3 * n)), mism
-    assert bad_k <= bad_p + 0.5, f"{name}: bad-2.0 {bad_k} vs plain {bad_p}"
-    return bad_k, bad_p
 
 
 def check_batch(scenes, out):
@@ -680,20 +690,25 @@ def time_scene(name, sc, sc8, iters):
 
 def time_wide(name, sc, cfg, iters):
     """ms per frame of the wide-range kernel path (K3) and per launch of
-    K3 and K1 on the left view, with the plain single view (chunked)."""
+    K3 and K1 on the left view, with the plain single view (chunked),
+    each once steady (``steady_ms``: windows of ``iters`` calls, one for
+    the plain version, until two agree within 2%)."""
     left, right = on_card(sc)
     gl = rgb_to_grayscale(left, cfg)
     gr = rgb_to_grayscale(right, cfg)
     stream = dataclasses.replace(cfg, stream=True)
-    t = {
-        "frame_ms": cuda_ms(lambda: stereo_pipeline(left, right, cfg), iters, warmup=1),
-        "k3_ms": cuda_ms(lambda: guided_wta_fused(gl, gr, cfg.d_min, cfg), iters, warmup=1),
-        "k1_ms": cuda_ms(lambda: guided_wta_fused(gl, gr, cfg.d_min, stream), iters, warmup=1),
-        "single_plain_ms": cuda_ms(
-            lambda: guided_wta_fused_reference(gl, gr, cfg.d_min, chunked(cfg)), 1, warmup=1),
+    steady = {
+        "frame_ms": steady_ms(lambda: stereo_pipeline(left, right, cfg), iters),
+        "k3_ms": steady_ms(lambda: guided_wta_fused(gl, gr, cfg.d_min, cfg), iters),
+        "k1_ms": steady_ms(lambda: guided_wta_fused(gl, gr, cfg.d_min, stream), iters),
+        "single_plain_ms": steady_ms(
+            lambda: guided_wta_fused_reference(gl, gr, cfg.d_min, chunked(cfg)), 1),
     }
+    t = {k: s.ms for k, s in steady.items()}
     print(f"timing {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
-          + k3_tile(*gl.shape, cfg))
+          + k3_tile(*gl.shape, cfg) + "; steady after windows "
+          + ", ".join(f"{k} {s.windows}{'' if s.settled else ' (not settled)'}"
+                      for k, s in steady.items()))
     return t
 
 
@@ -899,6 +914,47 @@ def drive_serve(tmp, scenes, big):
     return total
 
 
+def drive_bench(scenes):
+    """``bench.run`` in this process at the JAX bench's sizes and counts,
+    on the layered scenes already made (``scenes``: (h, w, ndisp) ->
+    scene, seed 7).  Each row's launches must be its route's per call
+    times its calls, and each row's first (unperturbed) frame is held to
+    the plain path (``check_outputs``; frame by frame for the batch).
+    Prints the bench's JSON line and the headline chain's device-busy
+    share.  Returns the path's counts and the bench's summary."""
+    routes = {"tsukuba": launches(k3=2, k2=1), "sequence_batch8": launches(k3=2, k2=1),
+              "six_mp": launches(k3=2, k2=1), "wide_d": launches(k3=2, k2=1),
+              "three_mp": launches(k3=2, k2=1), "d8_288x384_auto": launches(k4=1, k2=1),
+              "d8_288x384_single": launches(k3=2, k2=1), "d8_six_mp_auto": launches(k5=1, k2=1),
+              "d8_six_mp_single": launches(k3=2, k2=1), "six_mp_stream": launches(k1=2, k2=1)}
+    ((result,), total) = drive_path("bench path", [(
+        "bench.run", lambda: bench.run(DEV, bench.EXTRA_ROWS, scenes=scenes),
+        lambda res: {k: sum(r.launches[k] for r in res.rows.values()) for k in COUNT_NAMES})])
+    print("bench " + json.dumps(result.summary))
+    extra = result.summary["extra"]
+    assert not [k for k in extra if k.endswith("_error")], "a bench row failed"
+    assert set(result.rows) == set(routes), sorted(result.rows)
+    for row in (bench.HEADLINE, *bench.EXTRA_ROWS):
+        r = result.rows[row.key]
+        want = {k: v * r.calls for k, v in routes[row.key].items()}
+        print(f"bench {row.key}: launches {r.launches} over {r.calls} calls "
+              f"(route per call {routes[row.key]})")
+        assert r.launches == want, f"bench {row.key}: expected launches {want}"
+        frames = ([(r.inputs, r.first)] if row.batch == 1 else [
+            ({"left": r.inputs["left"][i], "right": r.inputs["right"][i], "gt": None},
+             {k: v[i] for k, v in r.first.items()}) for i in range(row.batch)])
+        for i, (sc, out) in enumerate(frames):
+            check_outputs(f"bench {row.key} first frame{f' {i}' if row.batch > 1 else ''}",
+                          sc, out, row.cfg)
+    left, right = on_card(result.rows["tsukuba"].inputs)
+    prof = profile_path("bench tsukuba chain",
+                        lambda: bench.step(lambda l: stereo_pipeline(l, right, DEFAULT_CONFIG), left),
+                        bench.HEADLINE.n_big)
+    print(f"bench tsukuba chain: device busy share {1 - prof['idle_share']:.4f} "
+          f"(tsukuba_ms_per_frame {extra['tsukuba_ms_per_frame']:.4f})")
+    return total, result.summary
+
+
 def bound(h, w, size_d, kernel):
     """(ms, what bounds it): the least time the card could take for one
     launch on (h, w) frames at ``size_d`` disparities, the larger of the
@@ -997,6 +1053,10 @@ def main() -> int:
         cli_counts, stage_totals = drive_cli(tmp, scenes16)
         path_counts += [cli_counts, drive_cli_mesh(tmp, scenes16["1992x3008"]), drive_eval(),
                         drive_serve(tmp, batch_scenes, scenes16["1992x3008"])]
+    bench_counts, bench_summary = drive_bench({
+        (1992, 3008, 16): scenes16["1992x3008"], (1992, 3008, 8): scenes8["1992x3008"],
+        (288, 384, 8): scenes8["288x384"], (1988, 2948, 128): wide["1988x2948 D=128"][0]})
+    path_counts.append(bench_counts)
 
     times = {name: time_scene(name, scenes16[name], scenes8[name], iters)
              for name, iters in zip(sizes, (50, 10))}
@@ -1009,6 +1069,11 @@ def main() -> int:
               f"{times[name]['frame_ms']:.4f}: ratio {ratio:.4f}")
     assert 0.85 <= stage_totals["1992x3008"] / times["1992x3008"]["frame_ms"] <= 1.15, \
         "the 6 MP stage table's TOTAL is not within 15% of the frame's time"
+    bench_6mp = bench_summary["extra"]["six_mp_ms_per_frame"]
+    ratio = bench_6mp / times["1992x3008"]["frame_ms"]
+    print(f"bench six_mp_ms_per_frame {bench_6mp:.4f} ms against timing 1992x3008 frame_ms "
+          f"{times['1992x3008']['frame_ms']:.4f}: ratio {ratio:.4f}")
+    assert 0.85 <= ratio <= 1.15, "the bench's 6 MP frame is not within 15% of frame_ms"
     for name, frames in zip(sizes, (50, 10)):
         sc = scenes16[name]
         left, right = on_card(sc)

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import numpy as np
 import torch
@@ -31,7 +30,7 @@ from .config import StereoConfig, DEFAULT_CONFIG
 from .ops.fused_guided import guided_wta_fused, guided_wta_fused_dual
 from .ops.fused_post import lr_fill_fused
 from .pipeline import use_dual_view, use_fused_path, use_fused_post
-from .timing import cuda_ms
+from .timing import Clock, window_ms
 
 STAGES_UNFUSED = ("rgb_to_grayscale x2", "cost_volume x2", "guided_filter+WTA x2",
                   "detect_occlusion", "fill_occlusion")
@@ -52,6 +51,14 @@ KERNEL_NAMES = {"guided_wta_stream_kernel": "K1", "lr_fill_kernel": "K2",
                 "guided_wta_kernel": "K3", "guided_wta_dual_kernel": "K4",
                 "guided_wta_dual_stream_kernel": "K5"}
 COUNT_NAMES = ("K1", "K2", "K3", "K4", "K5")
+
+
+def launch_counts() -> dict:
+    """{K1..K5: launches so far}, read from the kernel wrappers' counters
+    (each adds one where it launches its kernel)."""
+    return dict(zip(COUNT_NAMES, (
+        guided_wta_fused.k1_launches, lr_fill_fused.launches, guided_wta_fused.k3_launches,
+        guided_wta_fused_dual.k4_launches, guided_wta_fused_dual.k5_launches)))
 
 
 def stage_frames(h: int, w: int) -> int:
@@ -112,16 +119,13 @@ def _stage_fns(cfg: StereoConfig, device, batched: bool) -> list:
 
 def _stage_ms(call, device: torch.device, n: int):
     """(ms per call over ``n`` back-to-back calls after ``WARMUP``, the
-    first call's output)."""
+    first call's output).  A fixed warm-up, not ``timing.steady_ms``: a
+    stage table's launches are ``WARMUP + n`` per stage whatever the
+    times."""
     out = call()
-    if device.type == "cuda":
-        return cuda_ms(call, n, warmup=WARMUP - 1), out
     for _ in range(WARMUP - 1):
         call()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        call()
-    return (time.perf_counter() - t0) * 1e3 / n, out
+    return window_ms(call, n, Clock(device.type == "cuda")), out
 
 
 @torch.no_grad()

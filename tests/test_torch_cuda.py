@@ -13,12 +13,13 @@ import pytest
 import torch
 
 from stereo_matching_cuda_tpu_torch import (
-    DEFAULT_CONFIG, BoxStereoMatcher, StereoConfig, compute_disparity,
+    DEFAULT_CONFIG, BoxStereoMatcher, StereoConfig, bench, compute_disparity,
     stereo_pipeline, stereo_pipeline_batch)
 from stereo_matching_cuda_tpu_torch.ops.fused_guided import (
     guided_wta_fused, guided_wta_fused_dual, guided_wta_fused_dual_reference,
     guided_wta_fused_reference)
 from stereo_matching_cuda_tpu_torch.ops.fused_post import lr_fill_fused, lr_fill_reference
+from stereo_matching_cuda_tpu_torch.timing import steady_ms
 from stereo_matching_cuda_tpu_torch.utils.synth import make_scene
 
 pytestmark = pytest.mark.cuda
@@ -697,3 +698,26 @@ def test_shard_entry_refuses_a_short_halo(dev, stream):
     with pytest.raises(ValueError, match="short"):    # 30 < 2R + 1 + 15 columns
         guided_wta_fused_local(g, g, 64, 64, cfg.d_min, cfg, 192, 192, 64, 64)
     assert guided_wta_fused.k1_launches == guided_wta_fused.k3_launches == 0
+
+
+def test_bench_run_on_the_card(dev):
+    """Every row of the port's bench at 288x384 with short chains: every
+    key, no error; each row's first output is its pipeline on the same
+    frame, bit for bit; the row's launches are counted; the warm-up took
+    at least two windows."""
+    res = bench.run(dev, n_small=1, n_big=4, repeats=2, size=(288, 384))
+    extra = res.summary["extra"]
+    assert not [k for k in extra if k.endswith("_error")], extra
+    for row in (bench.HEADLINE, *bench.EXTRA_ROWS):
+        assert extra[f"{row.key}_ms_per_frame"] > 0, row.key
+        r = res.rows[row.key]
+        left, right = (torch.from_numpy(r.inputs[k]).to(dev) for k in ("left", "right"))
+        frame = stereo_pipeline if row.batch == 1 else stereo_pipeline_batch
+        for k, v in frame(left, right, row.cfg).items():
+            assert np.array_equal(r.first[k], v.cpu().numpy()), (row.key, k)
+        assert r.warm_windows >= 2 and r.peak_bytes > 0 and sum(r.launches.values()) > 0
+    for key in ("sequence_batch8_fps", "six_mp_fps", "six_mp_vs_baseline", "wide_d_config"):
+        assert key in extra
+    left, right = (torch.from_numpy(make_scene(288, 384)[k]).to(dev) for k in ("left", "right"))
+    s = steady_ms(lambda: stereo_pipeline(left, right), 5)
+    assert s.windows >= 2 and s.ms > 0
