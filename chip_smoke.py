@@ -198,7 +198,8 @@ def check_shard_entry(cfg, gl, gr):
     frame as the tile), both views.  Each tile is held to
     guided_wta_fused_local_reference at the fused bound; the stitched maps
     to the whole-frame launch of the same kernel: K3 bit for bit on the x
-    split (its 32-column CTAs cover the same pixels) and on the d split
+    split (at column 1,504, a multiple of 8: its runs start where the
+    whole frame's start, whatever the tile) and on the d split
     (combined with the ascending rule), within the bound on the grid
     (off K3's row grid) and for K1 (bands picked per tile).  Launch
     counts asserted.  Returns each kernel's max |best - plain|."""
@@ -612,13 +613,21 @@ def check_box(sc, out):
     print(f"box 288x384: equal to its plain path on every key, bad-2.0 {bad:.4f}%")
 
 
+def k3_shape(h, w, cfg):
+    """K3's output tile (columns, rows) on one (h, w) frame."""
+    return _kernels.guided_wta_tile(cfg.radius, cfg.size_d, h, w,
+                                    _kernels._n_sm(torch.device(DEV)))
+
+
 def k3_tile(h, w, cfg):
-    """K3's launch shape on one (h, w) frame: tile height, the grid's
-    CTAs, and the CTAs per SM that its shared memory allows."""
-    rows = _kernels.guided_wta_tile_rows(cfg.radius, cfg.size_d)
-    smem = _kernels.build()["lib"].guided_wta_smem_bytes(cfg.radius, rows, cfg.size_d)
-    return (f"; k3 tile {rows} rows, {-(-w // 32) * -(-h // rows)} CTAs, "
-            f"{_kernels.smem_ctas_per_sm(smem)} CTAs/SM by shared memory")
+    """K3's launch shape on one (h, w) frame: its tile (columns x rows),
+    the grid's CTAs, and the CTAs per SM (the fewer of those its shared
+    memory allows and those its block is built for)."""
+    tw, th = k3_shape(h, w, cfg)
+    smem = _kernels.build()["lib"].guided_wta_smem_bytes(cfg.radius, tw, th, cfg.size_d)
+    built = _kernels._K3_WAVE.get((tw, th), (_kernels._K3_CTAS_PER_SM, None))[0]
+    return (f"; k3 tile {tw}x{th}, {-(-w // tw) * -(-h // th)} CTAs, "
+            f"{min(built, _kernels.smem_ctas_per_sm(smem))} CTAs/SM")
 
 
 def k1_walk(h, w, cfg):
@@ -1126,6 +1135,15 @@ def main() -> int:
              k4_err, "k4_ms", "dual_plain_ms"),
             ("guided_wta_dual_stream (K5)", "K5", "guided_wta_dual_stream.cu",
              "pallas_guided.py:1116", k5_err, "k5_ms", "dual_plain_ms")]
+    # K3's ms per launch (left view) at each frame it was timed on, with its tile
+    k3_frames = {f"{name} D={d}": (times[name][key], cfg, sizes[name])
+                 for name in sizes for d, key, cfg in ((16, "k3_ms", DEFAULT_CONFIG),
+                                                       (8, "k3_d8_ms", CFG8))}
+    k3_frames.update({name: (wide_times[name]["k3_ms"], cfg, sc["left"].shape[:2])
+                      for name, (sc, cfg) in wide.items()})
+    k3_by_frame = {name: {"ms": ms, "tile": "{}x{}".format(*k3_shape(*hw, cfg))}
+                   for name, (ms, cfg, hw) in k3_frames.items()}
+    print(f"k3 by frame {json.dumps(k3_by_frame)}")
     record = {"kernels": []}
     for name, kernel, src, replaces, err, ms_key, plain_key in rows:
         bound_ms, bound_by = bound(1992, 3008, DEFAULT_CONFIG.size_d, kernel)
@@ -1136,6 +1154,8 @@ def main() -> int:
             "bound_by": bound_by,
             # no single PyTorch call computes the guided WTA or the LR check + fill
             "library_ms": None})
+        if kernel == "K3":
+            record["kernels"][-1]["by_frame"] = k3_by_frame
     print(f"wide-range timings {json.dumps(wide_times)}; batch and box {json.dumps(extra)}; "
           f"sharded {json.dumps(sharded_times)}")
     print(json.dumps(record))

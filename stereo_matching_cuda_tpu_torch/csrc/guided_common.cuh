@@ -6,10 +6,10 @@
 // slice per disparity.
 //
 // Window sums.  The guide statistics of every kernel, the last y-pass of
-// K3 and K4 and K1's y-pass to a/b sum each window directly
-// (window_sums, x_sums).  The other per-slice box passes of K3 and K4,
-// passes 3-6 of K5 and passes 2, 4 and 5 of K1 sum runs of kRun windows
-// from one direct seed (run_sums, x_runs, run_sums1).
+// K4 and K1's y-pass to a/b sum each window directly (window_sums,
+// x_sums).  Every per-slice box pass of K3, the other ones of K4, passes
+// 3-6 of K5 and passes 2, 4 and 5 of K1 sum runs of kRun windows from one
+// direct seed (run_sums, x_runs, run_sums1).
 //
 // Dual-view kernels.  The raw slice.  For left label d the truncated AD + gradient cost at
 // global column x is raw(x) = F(I_l(x), I_r(x + d)).  The right view's
@@ -40,7 +40,7 @@
 
 namespace guided {
 
-constexpr int kTileW = 32;       // output columns per CTA: one warp
+constexpr int kTileW = 32;       // one warp: K4's and K5's tile columns, K1's block width
 constexpr int kBlockY = 8;       // the block is kTileW x kBlockY threads
 constexpr int kThreads = kTileW * kBlockY;
 constexpr int kRB = 4;           // adjacent windows one thread sums at once
@@ -49,8 +49,8 @@ constexpr int kRB = 4;           // adjacent windows one thread sums at once
 // and K5 redesigned).
 constexpr int kRun = 8;
 
-// Block height of a TH-row tile (K3, K4): 16 (512 threads, two CTAs and
-// 32 warps per SM) where the tile has the rows, else 8.
+// Block height of a TH-row tile (K4): 16 (512 threads, two CTAs and 32
+// warps per SM) where the tile has the rows, else 8.
 __host__ __device__ constexpr int block_rows(int TH) { return TH >= 16 ? 16 : 8; }
 
 // Tiles with an origin (K1, K3).  H, W are the global image's.  The input

@@ -12,13 +12,13 @@
 // -d against the left image, with the tie rules and the shared raw slice
 // of guided_common.cuh.  A (B, H, W) batch rides blockIdx.z.
 //
-// Design.  K3's, with two views.  One CTA owns a 32 x TH output tile and
-// recomputes its 2R halo; nothing is carried between CTAs.  It loads
-// both uint8 windows once (widened by the column reach of both views),
-// computes each view's guide statistics once, then per slice computes
-// the raw slice once and runs the two views' guided chains one after the
-// other through the same four work planes (K3's buffers).  Each chain is
-// K3's: cost and I*cost, then box passes b, c and d in runs of kRun = 8
+// Design.  K3's 32-column tiles, with two views.  One CTA owns a 32 x TH
+// output tile and recomputes its 2R halo; nothing is carried between
+// CTAs.  It loads both uint8 windows once (widened by the column reach of
+// both views), computes each view's guide statistics once, then per slice
+// computes the raw slice once and runs the two views' guided chains one
+// after the other through the same four work planes (K3's buffers).  Each
+// chain: cost and I*cost, then box passes b, c and d in runs of kRun = 8
 // windows from one direct seed (run_sums), then pass e, each thread's own
 // TH/16 rows summed directly, and the WTA in registers.
 //

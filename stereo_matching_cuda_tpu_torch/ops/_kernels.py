@@ -5,14 +5,16 @@
                                 and bands, 64-column tiles
   K2 lr_fill.cu                 LR check + occlusion fill (lr_fill), rows
                                 staged in shared memory, two a CTA
-  K3 guided_wta.cu              one view, tiled (guided_wta): 32-column
-                                tiles of 32, 16 or 8 rows, the tallest
-                                of those that fit the most CTAs per SM
-                                (guided_wta_tile_rows); 512-thread
-                                blocks, 256 for 8 rows
+  K3 guided_wta.cu              one view, tiled (guided_wta): 64 x 64,
+                                56 or 48 tiles of 1024 threads at one
+                                CTA per SM, or 32-column tiles of 32, 16
+                                or 8 rows at two, the tile whose waves
+                                of CTAs take the least time
+                                (guided_wta_tile)
   K4 guided_wta_dual.cu         both views in one pass, tiled
-                                (guided_wta_dual): K3's tiles, blocks and
-                                tile rule (guided_wta_dual_tile_rows)
+                                (guided_wta_dual): K3's 32-column tiles,
+                                blocks and their rule
+                                (guided_wta_dual_tile_rows)
   K5 guided_wta_dual_stream.cu  both views, row walk down a band
                                 (guided_wta_dual_stream): 512-thread
                                 blocks at two CTAs per SM, 16-row steps
@@ -56,12 +58,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # N, H, W, dmin, D, R, tile or band rows; the cost constants; eps; stream.
 _LAUNCH_ARGS = [_I] * 7 + [_F] * 5 + [ctypes.c_double, _P]
-# The same with a tile (K1, K3): N, H, W, Hb, Wb, oy, ox, hy, hx, Hi, Wi,
-# dmin, D, R, tile or band rows (and K1's step); the rest as above.
-_TILE_LAUNCH_ARGS = [_I] * 15 + [_F] * 5 + [ctypes.c_double, _P]
 _SIGNATURES = {
-    "guided_wta_launch": (_I, [_P] * 4 + _TILE_LAUNCH_ARGS),
-    "guided_wta_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
+    # N, H, W, Hb, Wb, oy, ox, hy, hx, Hi, Wi, dmin, D, R, tile columns and
+    # rows; the cost constants; eps; stream.
+    "guided_wta_launch": (_I, [_P] * 4 + [_I] * 16 + [_F] * 5 + [ctypes.c_double, _P]),
+    "guided_wta_smem_bytes": (ctypes.c_longlong, [_I] * 4),
     "guided_wta_stream_launch": (_I, [_P] * 5 + [_I] * 16 + [_F] * 5
                                  + [ctypes.c_double, _P]),
     "guided_wta_stream_smem_bytes": (ctypes.c_longlong, [_I] * 4),
@@ -158,7 +159,7 @@ _SMEM_RESERVED_PER_BLOCK = 1_024
 
 # CTAs per SM each kernel's tile or band is sized for: occupancy first,
 # then height (PERF.md, Findings: K3, K4 and K5 redesigned).  The
-# 512-thread blocks of K1, K3, K4 and K5 are built for two
+# 512-thread blocks of K1, K3 (32 columns), K4 and K5 are built for two
 # (``__launch_bounds__(512, 2)``: at most 64 registers a thread), and so
 # are K3's and K4's 256-thread blocks of 8-row tiles.
 _K1_CTAS_PER_SM = 2
@@ -211,17 +212,44 @@ def _tallest_fullest(smem_by_rows: dict, per_sm: int, what: str) -> int:
     return rows[0]
 
 
+# K3's tiles (columns, rows) that a frame chooses among: the CTAs per SM
+# each is built for (64 columns: 1024 threads, one; 32 columns: 512, two)
+# and the time one wave of its CTAs (SMs x CTAs per SM) takes, relative to
+# 64x64's, measured at 1992x3008 D=16 on an H100 (PERF.md, Findings: K3
+# at large frames).  A frame's time is about its waves, rounded up, times
+# that.
+_K3_WAVE = {(64, 64): (1, 1.0), (64, 56): (1, 0.881), (64, 48): (1, 0.821),
+            (32, 32): (2, 0.763)}
+
+
 @functools.lru_cache(maxsize=None)
-def guided_wta_tile_rows(radius: int, size_d: int) -> int:
-    """K3's output tile height, of 32, 16 and 8: occupancy first (up to
-    ``_K3_CTAS_PER_SM``), then the tallest.  Neither the frame nor the
-    batch enters: with 16 warps a block, a 32-row tile's smaller halo
-    beat 16-row tiles that fill every SM (PERF.md, Findings: K3, K4 and
-    K5 redesigned)."""
+def guided_wta_tile(radius: int, size_d: int, h: int, w: int, n_sm: int) -> tuple[int, int]:
+    """K3's output tile (columns, rows) for an (h, w) frame on a card of
+    ``n_sm`` SMs: of the ``_K3_WAVE`` tiles whose shared memory fits their
+    CTAs per SM, the one whose waves over the frame take the least time
+    (first in the table's order on a tie).  Where none fits (from radius
+    13 at 16 disparities), 32 columns of 32, 16 or 8 rows, occupancy
+    first (up to ``_K3_CTAS_PER_SM``), then the tallest.  The batch size
+    does not enter, and K3's bits do not depend on its tile
+    (csrc/guided_wta.cu), so a batch computes each frame as a lone launch
+    does."""
     lib = build()["lib"]
-    return _tallest_fullest({th: lib.guided_wta_smem_bytes(radius, th, size_d)
-                             for th in (32, 16, 8)}, _K3_CTAS_PER_SM,
-                            f"radius {radius} with {size_d} disparities")
+
+    def fits(tile, per_sm):
+        smem = lib.guided_wta_smem_bytes(radius, *tile, size_d)
+        return smem <= _SMEM_LIMIT and smem_ctas_per_sm(smem) >= per_sm
+
+    def waves(tile):
+        per_sm, wave = _K3_WAVE[tile]
+        ctas = -(-w // tile[0]) * -(-h // tile[1])
+        return -(-ctas // (n_sm * per_sm)) * wave
+
+    tiles = [tile for tile, (per_sm, _) in _K3_WAVE.items() if fits(tile, per_sm)]
+    if tiles:
+        return min(tiles, key=waves)
+    return 32, _tallest_fullest({th: lib.guided_wta_smem_bytes(radius, 32, th, size_d)
+                                 for th in (32, 16, 8)}, _K3_CTAS_PER_SM,
+                                f"radius {radius} with {size_d} disparities")
 
 
 class Tile(NamedTuple):
@@ -280,29 +308,33 @@ def _tile_args(gray, outs, tile, radius, dmin, size_d) -> tuple:
 
 
 def guided_wta(gray1, gray2, best, dmap, dmin, size_d, radius, constants,
-               eps, tile_rows=None, tile=None) -> None:
+               eps, tile_rows=None, tile=None, tile_cols=None) -> None:
     """Launch K3 (csrc/guided_wta.cu) on the current stream.
     gray1/gray2: uint8 (N, Hb, Wb); best/dmap: float32 (N, Hi, Wi).
     ``tile`` (``Tile``) places the buffers and the outputs in the global
-    image; None is a whole frame (Hi, Wi = Hb, Wb).  ``tile_rows`` (32, 16
-    or 8) defaults to ``guided_wta_tile_rows``; it is set only to test or
-    measure the other tile heights."""
+    image; None is a whole frame (Hi, Wi = Hb, Wb).  The output tile
+    defaults to ``guided_wta_tile`` of the interior; ``tile_rows`` (with
+    ``tile_cols``, 32 if not given) sets it only to test or measure the
+    other tiles."""
     lib = build()["lib"]
     dims = _tile_args(gray1, (best, dmap), tile, radius, dmin, size_d)
-    th = tile_rows or guided_wta_tile_rows(radius, size_d)
+    if tile_rows:
+        tw, th = tile_cols or 32, tile_rows
+    else:
+        tw, th = guided_wta_tile(radius, size_d, dims[-2], dims[-1], _n_sm(gray1.device))
     err = lib.guided_wta_launch(
         gray1.data_ptr(), gray2.data_ptr(), best.data_ptr(), dmap.data_ptr(),
-        *dims, dmin, size_d, radius, th, *constants, float(eps), _stream(gray1))
+        *dims, dmin, size_d, radius, tw, th, *constants, float(eps), _stream(gray1))
     _check(err, "guided_wta_launch")
 
 
 @functools.lru_cache(maxsize=None)
 def guided_wta_dual_tile_rows(radius: int, reach: int) -> int:
-    """K4's output tile height, of 32, 16 and 8, by K3's rule: occupancy
-    first (up to ``_K4_CTAS_PER_SM``), then the tallest, whatever the
-    frame.  With 512-thread blocks the 32-row tile beat the 16-row one
-    at 288x384 too, though its 108 CTAs leave SMs idle (PERF.md,
-    Findings: K3, K4 and K5 redesigned)."""
+    """K4's output tile height, of 32, 16 and 8, by K3's rule for its
+    32-column tiles: occupancy first (up to ``_K4_CTAS_PER_SM``), then the
+    tallest, whatever the frame.  With 512-thread blocks the 32-row tile
+    beat the 16-row one at 288x384 too, though its 108 CTAs leave SMs idle
+    (PERF.md, Findings: K3, K4 and K5 redesigned)."""
     lib = build()["lib"]
     return _tallest_fullest({th: lib.guided_wta_dual_smem_bytes(radius, th, reach)
                              for th in (32, 16, 8)}, _K4_CTAS_PER_SM,

@@ -242,80 +242,131 @@ def test_dual_route_launch_counts(dev, kw, counts):
     assert np.isfinite(out["occlusion_filled"]).all()
 
 
-def _k3_at(g1, g2, dmin, cfg, th):
-    """K3 at tile height ``th`` (block height 16 for 16 and 32 rows, 8 for
-    8): uint8 (H, W) x2 -> (best, dmap)."""
+def _k3_at(g1, g2, dmin, cfg, tile):
+    """K3 at output tile ``tile`` (columns, rows): uint8 (H, W) x2 -> (best,
+    dmap)."""
     from stereo_matching_cuda_tpu_torch.ops import _kernels
     from stereo_matching_cuda_tpu_torch.ops.cost import cost_constants
 
     best = torch.empty((1, *g1.shape), dtype=torch.float32, device=g1.device)
     dmap = torch.empty_like(best)
     _kernels.guided_wta(g1[None], g2[None], best, dmap, dmin, cfg.size_d, cfg.radius,
-                        cost_constants(cfg), cfg.eps, tile_rows=th)
+                        cost_constants(cfg), cfg.eps, tile_rows=tile[1], tile_cols=tile[0])
     return best[0], dmap[0]
 
 
+# Every output tile K3 has (csrc/guided_wta.cu), the 64-column ones first.
+K3_TILES = [(64, 64), (64, 56), (64, 48), (32, 32), (32, 16), (32, 8)]
+
+
 def _k3_tiles(cfg):
-    """The tile heights whose shared memory fits one block."""
+    """The tiles whose shared memory fits one block."""
     from stereo_matching_cuda_tpu_torch.ops import _kernels
 
     lib = _kernels.build()["lib"]
-    return [th for th in (32, 16, 8)
-            if lib.guided_wta_smem_bytes(cfg.radius, th, cfg.size_d) <= _kernels._SMEM_LIMIT]
+    return [t for t in K3_TILES
+            if lib.guided_wta_smem_bytes(cfg.radius, *t, cfg.size_d) <= _kernels._SMEM_LIMIT]
+
+
+def _k3_rule(cfg, h, w):
+    """The tile K3's wrapper takes for an (h, w) frame on this card."""
+    from stereo_matching_cuda_tpu_torch.ops import _kernels
+
+    return _kernels.guided_wta_tile(cfg.radius, cfg.size_d, h, w,
+                                    _kernels._n_sm(torch.device("cuda")))
 
 
 def _assert_k3_bound(g1, g2, dmin, cfg, tiles):
+    """K3 at each tile within the fused bound of the plain version, and
+    every tile's maps the first one's bit for bit (K3's bits do not depend
+    on the tile)."""
     best_p, dmap_p = guided_wta_fused_reference(g1, g2, dmin, cfg)
-    for th in tiles:
-        best, dmap = _k3_at(g1, g2, dmin, cfg, th)
+    first = None
+    for tile in tiles:
+        best, dmap = _k3_at(g1, g2, dmin, cfg, tile)
         mism = int((dmap != dmap_p).sum())
-        assert mism <= max(4, 2e-3 * dmap.numel()), (th, mism)
-        torch.testing.assert_close(best, best_p, atol=2e-3, rtol=1e-4, msg=f"tile {th}")
+        assert mism <= max(4, 2e-3 * dmap.numel()), (tile, mism)
+        torch.testing.assert_close(best, best_p, atol=2e-3, rtol=1e-4, msg=f"tile {tile}")
+        first = first or (best, dmap)
+        assert torch.equal(best, first[0]) and torch.equal(dmap, first[1]), tile
 
 
 @pytest.mark.parametrize("h,w", [(1, 40), (17, 31), (33, 33), (64, 65), (40, 97)])
 def test_k3_tile_edges(dev, h, w):
-    """Frames that straddle the tile (32 columns; 32, 16, 8 rows) and the
-    window runs, at every tile height; the wrapper takes 32 rows at R=9."""
-    from stereo_matching_cuda_tpu_torch.ops import _kernels
-
-    assert _kernels.guided_wta_tile_rows(DEFAULT_CONFIG.radius, DEFAULT_CONFIG.size_d) == 32
+    """Frames that straddle the tile (32 and 64 columns; 64, 56, 48, 32, 16,
+    8 rows) and the window runs, at every tile; the wrapper takes 32 x 32
+    at R=9 on frames this small."""
+    assert _k3_rule(DEFAULT_CONFIG, h, w) == (32, 32)
     g1, g2 = _pair(h, w, h * w, dev)
-    _assert_k3_bound(g1, g2, DEFAULT_CONFIG.d_min, DEFAULT_CONFIG, (32, 16, 8))
+    _assert_k3_bound(g1, g2, DEFAULT_CONFIG.d_min, DEFAULT_CONFIG, K3_TILES)
 
 
 @pytest.mark.parametrize("dmin", [0, -5])
 def test_k3_one_disparity(dev, dmin):
     cfg = StereoConfig(d_min=dmin, d_max=dmin)
     g1, g2 = _pair(40, 97, 11, dev)
-    _assert_k3_bound(g1, g2, dmin, cfg, (32, 16, 8))
+    _assert_k3_bound(g1, g2, dmin, cfg, K3_TILES)
     best, dmap = guided_wta_fused(g1, g2, dmin, cfg)
     assert bool((dmap == dmin).all())
 
 
 @pytest.mark.parametrize("radius", [1, 23])
 def test_k3_radius_extremes(dev, radius):
-    """R=1 at every tile height, the wrapper taking 32 rows; R=23 fits
-    only the 8-row tile (256 threads), which the wrapper then picks."""
-    from stereo_matching_cuda_tpu_torch.ops import _kernels
-
+    """R=1 at every tile, the wrapper taking 32 x 32 on a small frame; R=23
+    fits only the 32 x 8 tile (256 threads), which the wrapper then
+    picks."""
     cfg = dataclasses.replace(DEFAULT_CONFIG, radius=radius)
     tiles = _k3_tiles(cfg)
-    assert tiles == ([32, 16, 8] if radius == 1 else [8]), tiles
+    assert tiles == (K3_TILES if radius == 1 else [(32, 8)]), tiles
     g1, g2 = _pair(70, 100, radius, dev)
     _assert_k3_bound(g1, g2, cfg.d_min, cfg, tiles)
-    assert _kernels.guided_wta_tile_rows(radius, cfg.size_d) == tiles[0]
+    assert _k3_rule(cfg, 70, 100) == (32, 32 if radius == 1 else 8)
 
 
 def test_k3_batch_equals_per_frame_on_16_row_tiles(dev):
-    """At R=20 only 16 and 8 rows fit, one CTA per SM each: the wrapper
-    takes 16 (512-thread blocks), and a B=3 batch equals per-frame
-    launches bit for bit."""
-    from stereo_matching_cuda_tpu_torch.ops import _kernels
-
+    """At R=20 only 16 and 8 rows of 32 columns fit, one CTA per SM each:
+    the wrapper takes 16 (512-thread blocks), and a B=3 batch equals
+    per-frame launches bit for bit."""
     cfg = dataclasses.replace(DEFAULT_CONFIG, radius=20)
-    assert _kernels.guided_wta_tile_rows(cfg.radius, cfg.size_d) == 16
+    assert _k3_rule(cfg, 70, 100) == (32, 16)
     pairs = [_pair(70, 100, s, dev) for s in (4, 5, 6)]
+    outs = guided_wta_fused(torch.stack([p[0] for p in pairs]),
+                            torch.stack([p[1] for p in pairs]), cfg.d_min, cfg)
+    for i, (a, b) in enumerate(pairs):
+        for j, t in enumerate(guided_wta_fused(a, b, cfg.d_min, cfg)):
+            assert torch.equal(outs[j][i], t), (i, j)
+
+
+# A 1408x1536 frame gives 22 x 24 = 528 CTAs of 64x64, four whole waves on
+# 132 SMs: the wrapper takes 64x64 at 16 disparities and 64x56 (26 x 24 =
+# 624 CTAs) where 64x64 does not fit.
+WIDE_HW = (1408, 1536)
+
+
+@pytest.mark.parametrize("size_d,tile", [(16, (64, 64)), (128, (64, 56))])
+def test_k3_wide_tiles_at_the_rule(dev, size_d, tile):
+    """The wrapper's wide tile where the frame fills the card in waves, at
+    16 disparities (64 x 64) and 128 (64 x 56, since 64 x 64 does not fit),
+    within the fused bound of the plain version (chunked above 32
+    disparities), and the 32 x 32 tile's bits."""
+    cfg = StereoConfig(d_min=-(size_d - 1), d_max=0)
+    assert _k3_rule(cfg, *WIDE_HW) == tile
+    g1, g2 = _pair(*WIDE_HW, size_d, dev)
+    plain = dataclasses.replace(cfg, d_chunk=16) if size_d > 32 else cfg
+    best_p, dmap_p = guided_wta_fused_reference(g1, g2, cfg.d_min, plain)
+    best, dmap = guided_wta_fused(g1, g2, cfg.d_min, cfg)
+    assert int((dmap != dmap_p).sum()) <= max(4, 2e-3 * dmap.numel())
+    torch.testing.assert_close(best, best_p, atol=2e-3, rtol=1e-4)
+    narrow = _k3_at(g1, g2, cfg.d_min, cfg, (32, 32))
+    assert torch.equal(narrow[0], best) and torch.equal(narrow[1], dmap)
+
+
+def test_k3_batch_equals_per_frame_at_the_wide_tile(dev):
+    """A B=2 batch of frames that take the 64x64 tile equals per-frame
+    launches bit for bit."""
+    cfg = DEFAULT_CONFIG
+    assert _k3_rule(cfg, *WIDE_HW) == (64, 64)
+    pairs = [_pair(*WIDE_HW, s, dev) for s in (7, 8)]
     outs = guided_wta_fused(torch.stack([p[0] for p in pairs]),
                             torch.stack([p[1] for p in pairs]), cfg.d_min, cfg)
     for i, (a, b) in enumerate(pairs):
@@ -664,8 +715,8 @@ def test_shard_entry_whole_frame_is_the_frame_launch(dev, stream):
 
 
 def test_shard_entry_k3_x_split_and_d_split_are_the_frame(dev):
-    """An x split at a multiple of K3's 32-column CTA tile covers the same
-    global pixels CTA by CTA, and a d split combined with the ascending
+    """An x split at a multiple of 8 columns starts every run where the
+    whole frame's CTAs start it, and a d split combined with the ascending
     rule is the 16-slice WTA: both stitch to the frame's maps bit for
     bit."""
     from stereo_matching_cuda_tpu_torch.ops.fused_guided import guided_wta_fused_local
@@ -686,6 +737,29 @@ def test_shard_entry_k3_x_split_and_d_split_are_the_frame(dev):
                                      n_slices=8) for k in (0, 1)]
     b, d = combine_d_ranges([r[0] for r in ranges], [r[1] for r in ranges])
     assert torch.equal(b, best) and torch.equal(d, dmap)
+
+
+def test_shard_entry_k3_x_split_at_six_mp(dev):
+    """The 6 MP frame's x split at column 1,504: the whole frame takes
+    64x56 tiles and each half 64x64 ones, whose CTAs start 32 columns off
+    the whole frame's; every run starts on a multiple of 8 from its tile's
+    origin, so both views' halves stitch to the frame's maps bit for
+    bit."""
+    from stereo_matching_cuda_tpu_torch.ops.fused_guided import guided_wta_fused_local
+    from stereo_matching_cuda_tpu_torch.parallel import pipeline_halo
+
+    cfg = DEFAULT_CONFIG
+    h, w = 1992, 3008
+    assert _k3_rule(cfg, h, w) == (64, 56) and _k3_rule(cfg, h, w // 2) == (64, 64)
+    gl, gr = _pair(h, w, 13, dev)
+    hy, hx = pipeline_halo(cfg)
+    for g1, g2, dmin in ((gl, gr, cfg.d_min), (gr, gl, cfg.d_min_right)):
+        best, dmap = guided_wta_fused(g1, g2, dmin, cfg)
+        parts = [guided_wta_fused_local(_extend(g1, 0, x, h, w // 2, hy, hx),
+                                        _extend(g2, 0, x, h, w // 2, hy, hx), 0, x, dmin,
+                                        cfg, h, w, h, w // 2) for x in (0, w // 2)]
+        assert torch.equal(torch.cat([p[0] for p in parts], 1), best), dmin
+        assert torch.equal(torch.cat([p[1] for p in parts], 1), dmap), dmin
 
 
 @pytest.mark.parametrize("stream", [False, True], ids=["K3", "K1"])

@@ -1,7 +1,7 @@
 """The kernels' launch-shape choice on the CPU, with no card and no CUDA
-toolkit: ``_kernels._pick_rows`` (K1, K5), K3's and K4's tile heights
-(``guided_wta_tile_rows``, ``guided_wta_dual_tile_rows``) and the steps
-and bands of K1 and K5 on synthetic {rows: shared-memory bytes} tables.
+toolkit: ``_kernels._pick_rows`` (K1, K5), K3's tile (``guided_wta_tile``)
+and K4's tile height (``guided_wta_dual_tile_rows``), and the steps and
+bands of K1 and K5 on synthetic shared-memory tables.
 tests/test_torch_cuda.py checks the picks with the real shared-memory
 functions on a card."""
 
@@ -17,18 +17,32 @@ N_SM = 132            # an H100 SXM's SMs
 SMALL, BIG = (288, 384), (1992, 3008)
 
 
-# {(radius, size_d): {rows: bytes}}: K3's shared memory, rounded, where
-# every tile gives two CTAs per SM (R=1, 9), only 16 and 8 rows fit one
-# block (R=20), only 8 rows (R=23), none (R=40), and a made-up radius 99
-# whose 32-row tile fits one CTA per SM and the others two.
-K3_SMEM = {(1, 1): {32: 33_000, 16: 18_000, 8: 11_000},
-           (9, 16): {32: 96_000, 16: 72_000, 8: 60_000},
-           (9, 64): {32: 99_000, 16: 74_000, 8: 62_000},
-           (9, 128): {32: 104_000, 16: 78_000, 8: 65_000},
-           (20, 16): {32: 235_000, 16: 198_000, 8: 180_000},
-           (23, 16): {32: 284_000, 16: 244_000, 8: 224_000},
-           (40, 16): {32: 648_000, 16: 588_000, 8: 558_000},
-           (99, 16): {32: 120_000, 16: 96_000, 8: 60_000}}
+# {(radius, size_d): {(columns, rows): bytes}}: K3's shared memory,
+# rounded, where every tile fits one block (R=1), the 64x64 tile fits up to
+# 64 disparities and 64x56 at 128 (R=9), no 64-column tile fits and only 16
+# and 8 rows of 32 columns fit (R=20), only 8 rows (R=23), none (R=40); and
+# two made-up radii: 98, where of the 64-column tiles only 64x48 fits, and
+# 99, where none does and the 32-row tile fits one CTA per SM and the
+# others two.
+K3_SMEM = {(1, 1): {(64, 64): 118_000, (64, 56): 104_000, (64, 48): 90_000,
+                    (32, 32): 33_000, (32, 16): 18_000, (32, 8): 11_000},
+           (9, 16): {(64, 64): 223_000, (64, 56): 204_000, (64, 48): 185_000,
+                     (32, 32): 96_000, (32, 16): 72_000, (32, 8): 60_000},
+           (9, 64): {(64, 64): 228_000, (64, 56): 209_000, (64, 48): 189_000,
+                     (32, 32): 99_000, (32, 16): 74_000, (32, 8): 62_000},
+           (9, 128): {(64, 64): 234_000, (64, 56): 214_000, (64, 48): 195_000,
+                      (32, 32): 104_000, (32, 16): 78_000, (32, 8): 65_000},
+           (20, 16): {(64, 64): 419_000, (64, 56): 394_000, (64, 48): 369_000,
+                      (32, 32): 235_000, (32, 16): 198_000, (32, 8): 180_000},
+           (23, 16): {(64, 64): 483_000, (64, 56): 456_000, (64, 48): 429_000,
+                      (32, 32): 284_000, (32, 16): 244_000, (32, 8): 224_000},
+           (40, 16): {(64, 64): 934_000, (64, 56): 897_000, (64, 48): 860_000,
+                      (32, 32): 648_000, (32, 16): 588_000, (32, 8): 558_000},
+           (98, 16): {(64, 64): 240_000, (64, 56): 233_000, (64, 48): 200_000,
+                      (32, 32): 96_000, (32, 16): 72_000, (32, 8): 60_000},
+           (99, 16): {(64, 64): 300_000, (64, 56): 280_000, (64, 48): 260_000,
+                      (32, 32): 120_000, (32, 16): 96_000, (32, 8): 60_000}}
+WIDE = (1988, 2948)   # the 128-disparity frame
 
 
 @pytest.fixture
@@ -37,13 +51,13 @@ def k3_table(monkeypatch):
     K3_SMEM; the picker's cache cleared around the test."""
     class Lib:
         @staticmethod
-        def guided_wta_smem_bytes(radius, rows, size_d):
-            return K3_SMEM[radius, size_d][rows]
+        def guided_wta_smem_bytes(radius, cols, rows, size_d):
+            return K3_SMEM[radius, size_d][cols, rows]
 
     monkeypatch.setattr(_kernels, "build", lambda *a: {"lib": Lib})
-    _kernels.guided_wta_tile_rows.cache_clear()
+    _kernels.guided_wta_tile.cache_clear()
     yield
-    _kernels.guided_wta_tile_rows.cache_clear()
+    _kernels.guided_wta_tile.cache_clear()
 
 
 def test_occupancy_comes_before_height():
@@ -70,30 +84,46 @@ def test_none_when_nothing_fits_one_block():
 
 
 def test_batch_size_never_enters():
-    """Neither the picker nor K3's tile height takes the batch size, so
-    a batch computes each frame as a lone launch does."""
+    """Neither the picker nor K3's tile takes the batch size, so a batch
+    computes each frame as a lone launch does."""
     assert list(inspect.signature(_kernels._pick_rows).parameters) == [
         "smem_by_rows", "per_sm", "h", "w", "n_sm", "tile_w"]
-    assert list(inspect.signature(_kernels.guided_wta_tile_rows).parameters) == [
-        "radius", "size_d"]
+    assert list(inspect.signature(_kernels.guided_wta_tile).parameters) == [
+        "radius", "size_d", "h", "w", "n_sm"]
     assert list(inspect.signature(_kernels.guided_wta_dual_tile_rows).parameters) == [
         "radius", "reach"]
     assert "n" not in inspect.signature(_kernels.guided_wta_dual_stream_band_rows).parameters
     assert "n" not in inspect.signature(_kernels.guided_wta_stream_band_rows).parameters
 
 
-@pytest.mark.parametrize("radius,size_d,rows", [
-    (9, 16, 32), (9, 64, 32), (9, 128, 32), (20, 16, 16), (23, 16, 8), (1, 1, 32),
-    (99, 16, 16)])
-def test_k3_tile_rows(k3_table, radius, size_d, rows):
-    """K3: occupancy first, then the tallest, whatever the frame (at R=9:
-    288x384 gets 12 x 9 = 108 CTAs, 6 MP 94 x 63 = 5,922)."""
-    assert _kernels.guided_wta_tile_rows(radius, size_d) == rows
+@pytest.mark.parametrize("radius,size_d,hw,tile", [
+    (9, 16, SMALL, (32, 32)), (9, 16, BIG, (64, 56)), (9, 64, SMALL, (32, 32)),
+    (9, 64, BIG, (64, 56)), (9, 128, WIDE, (64, 56)), (9, 128, SMALL, (32, 32)),
+    (9, 16, (576, 768), (64, 56)), (9, 16, (864, 1152), (64, 64)),
+    (9, 16, (1504, 2048), (64, 64)), (9, 16, (1992, 1504), (64, 64)),
+    (20, 16, BIG, (32, 16)), (23, 16, BIG, (32, 8)), (1, 1, SMALL, (32, 32)),
+    (1, 1, BIG, (64, 56)), (98, 16, BIG, (64, 48)), (99, 16, BIG, (32, 16))])
+def test_k3_tile_rows(k3_table, radius, size_d, hw, tile):
+    """K3: of the tiles that fit their CTAs per SM, the one whose waves
+    take the least time (288x384: one wave of 108 32x32 CTAs, 0.763,
+    against one of 64x48, 0.821; 6 MP: 13 waves of 64x56, 11.45, against
+    12 of 64x64, 12.0); where none does, 32 columns, occupancy first, then
+    the tallest."""
+    assert _kernels.guided_wta_tile(radius, size_d, *hw, N_SM) == tile
+
+
+def test_k3_tile_by_waves(k3_table):
+    """1408x1536: 528 CTAs of 64x64, four whole waves (4.0), against five
+    of 64x56 (4.405); 64 columns more make five waves of either, and
+    64x56's are the shorter."""
+    assert _kernels.guided_wta_tile(9, 16, 1408, 1536, N_SM) == (64, 64)
+    assert _kernels.guided_wta_tile(9, 16, 1408, 1600, N_SM) == (64, 56)
 
 
 def test_k3_tile_rows_raises_when_nothing_fits(k3_table):
-    with pytest.raises(ValueError, match="shared memory"):
-        _kernels.guided_wta_tile_rows(40, 16)
+    for hw in (SMALL, BIG):
+        with pytest.raises(ValueError, match="shared memory"):
+            _kernels.guided_wta_tile(40, 16, *hw, N_SM)
 
 
 # K4's shared memory (bytes, rounded) at column reach 15 (16
